@@ -1,21 +1,30 @@
-"""Exact softmax attention for [B, H, S, D]: the Hopper kernel and its
+"""Exact softmax attention for [B, H, S, D]: the Hopper kernels and their
 plain PyTorch version, side by side.
 
-`flash_attention` launches the hand-written CUDA kernel in
-``csrc/flash_attn.cu`` (the twin of the Pallas kernel in
-arbius_tpu/ops/flash.py; the source says what bounds it and how it is
-laid out). It takes CUDA tensors only and raises on anything else.
+`flash_attention` launches one of two hand-written CUDA kernels, both
+twins of the Pallas kernel in arbius_tpu/ops/flash.py (each source says
+what bounds it and how it is laid out):
+
+  - ``tensor_core`` (``csrc/flash_attn_tc.cu``): mma.sync with bf16
+    operands, for bf16 at 8 <= D <= 160, D % 8 == 0, with B/H/S strides
+    that are multiples of 8 elements and 16-byte aligned data (its loads
+    are 16-byte cp.async copies). The UNet's attentions take it.
+  - ``cuda_core`` (``csrc/flash_attn.cu``): float32 arithmetic on the
+    CUDA cores, for everything else (float32, D = 512, odd strides).
+
+`route` is the rule between them: a pure function of dtype, head dim,
+strides and pointers, so a given call always takes the same kernel and
+the route is part of the determinism class. It is not a fallback: a
+launch that fails raises. The kernels take CUDA tensors only.
 `flash_attention_reference` is the plain version, the twin of
 `sp_attention_reference` (arbius_tpu/ops/ring.py): scores in the input
 dtype, softmax in float32, probabilities cast back to v's dtype.
-`attention` is what the models call: the kernel for every CUDA tensor,
-the plain version for a CPU tensor. There is no other switch and no
-fallback.
+`attention` is what the models call: the kernels for every CUDA tensor,
+the plain version for a CPU tensor.
 
-The kernel's arithmetic differs from the plain version's in bf16: it
-keeps the scores and probabilities in float32 and rounds only its
-output. So its bf16 output is held against the plain version run in
-float32 on the same inputs, one bf16 rounding apart.
+Both kernels keep the scores, the softmax statistics and the accumulator
+in float32, so their output is held against the plain version run in
+float32 on the same inputs, within `error_bound`.
 """
 from __future__ import annotations
 
@@ -26,9 +35,17 @@ import torch
 
 from arbius_tpu_torch.ops import _build
 
-SOURCE = "flash_attn.cu"
+SOURCE = "flash_attn.cu"          # the cuda_core route
+TC_SOURCE = "flash_attn_tc.cu"    # the tensor_core route
+SOURCES = {"tensor_core": TC_SOURCE, "cuda_core": SOURCE}
+_ENTRY = {"tensor_core": "arbius_flash_attn_tc_fwd",
+          "cuda_core": "arbius_flash_attn_fwd"}
 MAX_HEAD_DIM = 512
+TC_MAX_HEAD_DIM = 160
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (atol, rtol) of a kernel's output against the plain version run in
+# float32 on the same inputs; see error_bound
+TOL = {"bfloat16": (1e-4, 2.0 ** -8), "float32": (2e-5, 2e-5)}
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -40,12 +57,60 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v).to(q.dtype)
 
 
+def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                route: str) -> torch.Tensor:
+    """Per-element bound [B, H, Sq, D] on |kernel - ref|, with ref the
+    plain version run in float32 on the same inputs, for `route`'s
+    output in q's dtype. From the plain version's float32 probabilities P:
+
+      - float32: 2e-5 + 2e-5 * |ref| (summation order);
+      - bf16, cuda_core: 1e-4 + 2**-8 * |ref|: one rounding of the
+        float32 result (<= 2**-9 of it), doubled, plus atol for float32
+        summation order;
+      - bf16, tensor_core: 1e-4 + 2**-8 * (|ref| + P |V|): P is rounded
+        to bf16 before P V (<= 2**-9 of each p_i |v_i|, doubled as
+        above), while l sums the unrounded P.
+    """
+    if route not in SOURCES:
+        raise ValueError(f"unknown route {route!r}")
+    atol, rtol = TOL[str(q.dtype).split(".")[-1]]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    vf = v.float()
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                                   k.float()) * scale, dim=-1)
+    size = torch.einsum("bhqk,bhkd->bhqd", p, vf).abs()
+    if route == "tensor_core" and q.dtype == torch.bfloat16:
+        size += torch.einsum("bhqk,bhkd->bhqd", p, vf.abs())
+    return atol + rtol * size
+
+
+def route(dtype: torch.dtype, d: int, strides, pointers) -> str:
+    """The kernel a call takes: "tensor_core" for bf16 with
+    8 <= d <= 160, d % 8 == 0, every stride in `strides` (the B, H and S
+    strides of q, k and v, in elements) a multiple of 8 and every data
+    pointer in `pointers` 16-byte aligned; "cuda_core" otherwise."""
+    if (dtype == torch.bfloat16 and 8 <= d <= TC_MAX_HEAD_DIM and d % 8 == 0
+            and all(s % 8 == 0 for s in strides)
+            and all(ptr % 16 == 0 for ptr in pointers)):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def route_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """`route` applied to the tensors of one call."""
+    return route(q.dtype, q.shape[-1],
+                 [s for t in (q, k, v) for s in t.stride()[:3]],
+                 [t.data_ptr() for t in (q, k, v)])
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.arbius_flash_attn_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 9
-                   + [ctypes.c_float, ctypes.c_void_p])
+    for name in _ENTRY.values():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                           + [ctypes.c_longlong] * 9
+                           + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -70,36 +135,54 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v need a contiguous last (head) dimension")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: q/k/v [B, H, S, D] (any strides over B, H
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kernel: str | None = None) -> torch.Tensor:
+    """Launch a CUDA kernel: q/k/v [B, H, S, D] (any strides over B, H
     and S, unit stride over D) -> contiguous [B, H, Sq, D] in q's dtype.
-    Launches on the current stream and does not synchronise."""
+    The kernel is `route_of(q, k, v)`; `kernel` names one instead, for
+    checking a route, and must be one the inputs allow ("cuda_core"
+    takes every input). Launches on the current stream and does not
+    synchronise."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CUDA tensors, got "
                          f"{q.device}; attention() uses the plain version "
                          "for CPU tensors")
-    lib = _build.load(SOURCE, _declare)
+    which = route_of(q, k, v)
+    if kernel is not None:
+        if kernel not in SOURCES or (kernel == "tensor_core"
+                                     and which != kernel):
+            raise ValueError(f"kernel {kernel!r} cannot take these inputs "
+                             f"(their route is {which!r})")
+        which = kernel
+    lib = _build.load(SOURCES[which], _declare)
     b, h, sq, d = q.shape
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    err = lib.arbius_flash_attn_fwd(
+    err = getattr(lib, _ENTRY[which])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], b, h, sq, k.shape[2], d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash attention ({which}) launch failed: CUDA "
+                           f"error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[which] += 1
     return out
 
 
-flash_attention.launches = 0  # kernel launches since the last reset
+def reset_launches() -> None:
+    """Set the launch counts (total and per route) to 0."""
+    flash_attention.launches = 0
+    flash_attention.launches_by_route = dict.fromkeys(SOURCES, 0)
+
+
+reset_launches()  # kernel launches since the last reset
 
 
 def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
-    """Exact attention for [B, H, S, D]: the CUDA kernel for a CUDA
+    """Exact attention for [B, H, S, D]: a CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
     if q.device.type == "cuda":
         return flash_attention(q, k, v)

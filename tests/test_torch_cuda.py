@@ -24,37 +24,76 @@ def cuda():
     return setup_device("cuda")
 
 
-# (atol, rtol) against the plain version in float32 on the same inputs:
-# in bf16, one rounding of the float32 result (<= 2**-8 of the value)
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 2e-5)),
-                                       (torch.bfloat16, (1e-4, 2.0 ** -8))])
-@pytest.mark.parametrize("b,h,sq,skv,d", [
-    (1, 2, 200, 200, 40), (2, 8, 256, 77, 80), (1, 8, 64, 64, 160),
-    (1, 1, 300, 300, 512), (2, 3, 100, 333, 33),
+def _inputs(device, b, h, sq, skv, d, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, h, s, d, generator=gen, device=device).to(dtype)
+            for s in (sq, skv, skv)]
+
+
+def _assert_within_bound(out, q, k, v, route):
+    """Per element within ops/flash.py's error_bound for `route`, against
+    the plain version in float32 on the same inputs."""
+    ref = flash.flash_attention_reference(q.float(), k.float(), v.float())
+    err = (out.float() - ref).abs()
+    bound = flash.error_bound(q, k, v, route)
+    assert bool((err <= bound).all()), (
+        f"max error {err.max().item()}, worst error/bound "
+        f"{(err / bound).max().item()}")
+
+
+_CUDA_CORE_SHAPES = [(1, 2, 200, 200, 40), (2, 8, 256, 77, 80),
+                     (1, 8, 64, 64, 160), (1, 1, 300, 300, 512),
+                     (2, 3, 100, 333, 33)]
+_TENSOR_CORE_SHAPES = [(1, 2, 200, 200, 40), (2, 8, 256, 77, 80),
+                       (1, 8, 64, 64, 160), (1, 2, 200, 333, 40),
+                       (2, 3, 200, 77, 80), (1, 4, 200, 333, 160)]
+
+
+@pytest.mark.parametrize("route,dtype,b,h,sq,skv,d", [
+    *(("cuda_core", dt, *s) for dt in (torch.float32, torch.bfloat16)
+      for s in _CUDA_CORE_SHAPES),
+    *(("tensor_core", torch.bfloat16, *s) for s in _TENSOR_CORE_SHAPES),
 ])
-def test_kernel_matches_plain(cuda, dtype, tol, b, h, sq, skv, d):
-    gen = torch.Generator(device=cuda).manual_seed(sq + d)
-    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=cuda)
-               .to(dtype) for s in (sq, skv, skv))
-    before = flash.flash_attention.launches
-    out = flash.flash_attention(q, k, v)
-    again = flash.flash_attention(q, k, v)
-    assert flash.flash_attention.launches == before + 2
-    plain = flash.flash_attention_reference(q.float(), k.float(), v.float())
-    torch.testing.assert_close(out.float(), plain, atol=tol[0], rtol=tol[1])
+def test_kernel_matches_plain(cuda, route, dtype, b, h, sq, skv, d):
+    q, k, v = _inputs(cuda, b, h, sq, skv, d, dtype, seed=sq + d)
+    before = dict(flash.flash_attention.launches_by_route)
+    out = flash.flash_attention(q, k, v, kernel=route)
+    again = flash.flash_attention(q, k, v, kernel=route)
+    assert flash.flash_attention.launches_by_route[route] == (
+        before[route] + 2)
+    _assert_within_bound(out, q, k, v, route)
     assert torch.equal(out, again)
 
 
-def test_kernel_takes_strided_heads(cuda):
-    """The models hand over [B, S, H, D] views transposed to [B, H, S, D]."""
+def test_tensor_core_route_is_batch_position_invariant(cuda):
+    """Permuting the batch permutes the output bit for bit."""
+    q, k, v = _inputs(cuda, 8, 2, 200, 333, 40, torch.bfloat16, seed=5)
+    perm = torch.tensor([2, 3, 0, 1, 6, 7, 4, 5], device=cuda)
+    assert flash.route_of(q, k, v) == "tensor_core"
+    assert torch.equal(flash.flash_attention(q[perm], k[perm], v[perm]),
+                       flash.flash_attention(q, k, v)[perm])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_takes_strided_heads(cuda, dtype):
+    """The models hand over [B, S, H, D] views transposed to [B, H, S, D];
+    in bf16 they take the tensor-core route."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(2, 96, 4 * 40, generator=gen, device=cuda)
+    x = torch.randn(2, 96, 4 * 40, generator=gen, device=cuda).to(dtype)
     q = x.view(2, 96, 4, 40).transpose(1, 2)
+    route = flash.route_of(q, q, q)
+    assert route == ("tensor_core" if dtype == torch.bfloat16
+                     else "cuda_core")
     out = flash.flash_attention(q, q, q)
-    ref = flash.flash_attention_reference(q.contiguous(), q.contiguous(),
-                                          q.contiguous())
-    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    qc = q.contiguous()
+    _assert_within_bound(out, qc, qc, qc, route)
     assert torch.equal(flash.attention(q, q, q), out)
+
+
+def test_tensor_core_route_refuses_what_the_rule_sends_elsewhere(cuda):
+    q = torch.zeros(1, 1, 64, 40, device=cuda)
+    with pytest.raises(ValueError, match="cannot take"):
+        flash.flash_attention(q, q, q, kernel="tensor_core")
 
 
 def test_conv_is_batch_position_invariant(cuda):

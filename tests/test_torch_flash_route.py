@@ -1,0 +1,167 @@
+"""The rule between the two attention kernels (`route`) and the error
+bound their outputs are held to (`error_bound`), on the CPU.
+
+The tensor-core kernel (csrc/flash_attn_tc.cu) rounds the probabilities
+P to bf16 before P V; `_tensor_core_arithmetic` repeats its arithmetic in
+plain torch (64-key tiles, online softmax in the log2 domain, P rounded
+to bf16, l summed from the unrounded P) so that the bound can be held
+against it here. The kernel itself is checked on the card
+(tests/test_torch_cuda.py, chip_smoke.py, tools/flash_mutants.py)."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from arbius_tpu_torch.models import common
+from arbius_tpu_torch.ops import flash
+
+UNET_SHAPES = [s[:5] for s in chip_smoke.MAIN_PATH_SHAPES if s[4] <= 160]
+
+
+def _contiguous(b, h, s, d):
+    return (h * s * d, s * d, d)
+
+
+def _route_contiguous(dtype, b, h, sq, skv, d, pointer=256):
+    strides = _contiguous(b, h, sq, d) + 2 * _contiguous(b, h, skv, d)
+    return flash.route(dtype, d, strides, [pointer] * 3)
+
+
+def test_unet_shapes_take_the_tensor_cores_and_the_vae_does_not():
+    assert len(UNET_SHAPES) == 8
+    for shape in UNET_SHAPES:
+        assert _route_contiguous(torch.bfloat16, *shape) == "tensor_core"
+    vae = [s[:5] for s in chip_smoke.MAIN_PATH_SHAPES if s[4] > 160]
+    assert vae == [(4, 1, 4096, 4096, 512)]
+    assert _route_contiguous(torch.bfloat16, *vae[0]) == "cuda_core"
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_models_strided_views_take_the_tensor_cores(monkeypatch, d):
+    """The UNet's Attention hands [B, S, H, D] views transposed to
+    [B, H, S, D]: self- and cross-attention both pass the rule."""
+    seen = []
+
+    def spy(q, k, v):
+        seen.append((flash.route_of(q, k, v), q.is_contiguous()))
+        return flash.flash_attention_reference(q, k, v)
+
+    monkeypatch.setattr(common, "fused_attention", spy)
+    torch.manual_seed(0)
+    attn_self = common.Attention(8 * d, 8, d, torch.bfloat16)
+    attn_cross = common.Attention(8 * d, 8, d, torch.bfloat16,
+                                  context_dim=96)
+    x = torch.randn(2, 16, 8 * d).bfloat16()
+    with torch.no_grad():
+        attn_self(x)
+        attn_cross(x, torch.randn(2, 77, 96).bfloat16())
+    assert seen == [("tensor_core", False)] * 2
+
+
+@pytest.mark.parametrize("case", [
+    "float32", "d512", "d33", "d168", "d4", "s_stride", "h_stride",
+    "pointer"])
+def test_rule_sends_the_rest_to_the_cuda_cores(case):
+    dtype, d, pointer = torch.bfloat16, 40, 256
+    strides = list(_contiguous(2, 8, 64, 40)) * 3
+    if case == "float32":
+        dtype = torch.float32
+    elif case.startswith("d"):
+        d = int(case[1:])
+        strides = list(_contiguous(2, 8, 64, d)) * 3
+    elif case == "s_stride":
+        strides[2] = 44              # rows 44 elements apart
+    elif case == "h_stride":
+        strides[4] = 64 * 40 + 4
+    else:
+        pointer = 256 + 2            # one bf16 element off 16 bytes
+    assert flash.route(dtype, d, strides, [256, 256, pointer]) == "cuda_core"
+
+
+def test_route_of_reads_real_tensors():
+    x = torch.zeros(2 * 8 * 64 * 40 + 1, dtype=torch.bfloat16)
+    q = x[:-1].view(2, 8, 64, 40)
+    assert flash.route_of(q, q, q) == "tensor_core"
+    off = x[1:].view(2, 8, 64, 40)   # data pointer 2 bytes off
+    assert flash.route_of(q, off, q) == "cuda_core"
+    assert flash.route_of(q.float(), q.float(), q.float()) == "cuda_core"
+
+
+def _qkv(b, h, sq, skv, d, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, h, s, d))
+                             .astype(np.float32)).bfloat16()
+            for s in (sq, skv, skv)]
+
+
+def _tensor_core_arithmetic(q, k, v, scale_factor=1.0, tile=64):
+    """The tensor-core kernel's arithmetic in plain torch: bf16 inputs,
+    float32 scores, online softmax over 64-key tiles with
+    exp2(s * scale * log2(e) - m * scale * log2(e)), P rounded to bf16
+    for P V, l summed from the unrounded P, output rounded to bf16."""
+    sl2 = scale_factor / math.sqrt(q.shape[-1]) * math.log2(math.e)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:3], -math.inf)
+    l = torch.zeros(q.shape[:3])
+    o = torch.zeros(q.shape)
+    for kv0 in range(0, k.shape[2], tile):
+        s = qf @ kf[:, :, kv0:kv0 + tile].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * sl2)
+        p = torch.exp2(s * sl2 - (m_new * sl2)[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + p.bfloat16().float() @ vf[:, :, kv0:kv0
+                                                               + tile]
+        m = m_new
+    return (o / l[..., None]).bfloat16()
+
+
+def _within(out, q, k, v, route):
+    ref = flash.flash_attention_reference(q.float(), k.float(), v.float())
+    err = (out.float() - ref).abs()
+    return bool((err <= flash.error_bound(q, k, v, route)).all())
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("skv", [48, 77])
+def test_tensor_core_arithmetic_lies_within_its_bound(d, skv):
+    q, k, v = _qkv(2, 2, 96, skv, d, seed=d + skv)
+    out = _tensor_core_arithmetic(q, k, v)
+    assert _within(out, q, k, v, "tensor_core")
+    # the CUDA-core kernel's bound (one rounding of the float32 result)
+    # is too tight for this arithmetic: P's rounding needs its own term
+    assert not _within(out, q, k, v, "cuda_core")
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("skv", [48, 77])
+def test_scale_one_percent_high_breaks_the_bound(d, skv):
+    q, k, v = _qkv(2, 2, 96, skv, d, seed=d + skv)
+    out = _tensor_core_arithmetic(q, k, v, scale_factor=1.01)
+    assert not _within(out, q, k, v, "tensor_core")
+
+
+def test_cuda_core_bound_is_one_bf16_rounding():
+    q, k, v = _qkv(1, 2, 64, 77, 40, seed=1)
+    ref = flash.flash_attention_reference(q.float(), k.float(), v.float())
+    torch.testing.assert_close(flash.error_bound(q, k, v, "cuda_core"),
+                               1e-4 + 2.0 ** -8 * ref.abs())
+    tc = flash.error_bound(q, k, v, "tensor_core")
+    assert bool((tc > flash.error_bound(q, k, v, "cuda_core")).all())
+    f32 = flash.error_bound(q.float(), k.float(), v.float(), "cuda_core")
+    torch.testing.assert_close(f32, 2e-5 + 2e-5 * ref.abs())
+    with pytest.raises(ValueError, match="unknown route"):
+        flash.error_bound(q, k, v, "wgmma")
+
+
+def test_reset_launches_zeroes_every_count():
+    flash.flash_attention.launches_by_route["tensor_core"] = 3
+    flash.flash_attention.launches = 3
+    flash.reset_launches()
+    assert flash.flash_attention.launches == 0
+    assert flash.flash_attention.launches_by_route == {
+        "tensor_core": 0, "cuda_core": 0}

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Show that chip_smoke.py's kernel check catches a subtly wrong kernel.
+"""Show that chip_smoke.py's kernel check catches a subtly wrong kernel,
+on each of the two attention routes.
 
     python3 tools/flash_mutants.py
 
-Needs one CUDA card and nvcc; imports torch and the port only. Builds
-csrc/flash_attn.cu and copies of it with one deliberate fault each
-(MUTANTS) into a temporary directory, all at once, and runs each at the
-main path's bf16 shapes through chip_smoke.py's check: the kernel against
-the plain version in float32 on the same inputs. For each build it prints
-one JSON line: the largest error and the output's RMS per shape, whether
-the check passes, and whether the looser check it replaced (rtol = atol
-= 2e-2 against the plain version in bf16) would have. Exits 0 only if
-the faultless build passes and every mutant fails.
+Needs one CUDA card and nvcc; imports torch and the port only. For each
+kernel source (csrc/flash_attn_tc.cu, the tensor-core route, and
+csrc/flash_attn.cu, the CUDA-core route) builds the source and copies of
+it with one deliberate fault each (MUTANTS) into a temporary directory,
+all at once, and runs each build at the bf16 main-path shapes its route
+takes (the tensor-core route at the 8 UNet shapes, the CUDA-core route at
+all 9) through chip_smoke.py's check: the kernel against the plain
+version in float32 on the same inputs, within ops/flash.py's
+`error_bound` for the route. For each build it prints one JSON line: the
+largest error, the output's RMS and the worst error/bound per shape,
+whether the check passes, and whether the loose check the CUDA-core
+route once had (rtol = atol = 2e-2 against the plain version in bf16)
+would. Exits 0 only if, for each source, the faultless build passes and
+every mutant fails at every shape.
 """
 from __future__ import annotations
 
@@ -28,53 +34,70 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 
-# name -> (text in csrc/flash_attn.cu, its replacement); None: no fault
+# route -> name -> (text in the route's source, its replacement); None: no
+# fault. Each route's two faults: the last key of every sequence is left
+# out of the softmax; the scores are scaled by 1.01 / sqrt(D).
 MUTANTS = {
-    "faultless": None,
-    # the last key of every sequence is left out of the softmax
-    "drops_last_key": ("const int nvalid = min(BK, p.skv - kv0);",
-                       "const int nvalid = min(BK, p.skv - kv0)"
-                       " - (kv0 + BK >= p.skv);"),
-    # scores scaled by 1.01 / sqrt(D)
-    "scale_1pct_high": ("? s[i][j] * p.scale", "? s[i][j] * (1.01f * p.scale)"),
+    "tensor_core": {
+        "faultless": None,
+        "drops_last_key": ("const int kv_end = p.skv;",
+                           "const int kv_end = p.skv - 1;"),
+        "scale_1pct_high": ("const float sl2 = p.scale * kLog2e;",
+                            "const float sl2 = 1.01f * p.scale * kLog2e;"),
+    },
+    "cuda_core": {
+        "faultless": None,
+        "drops_last_key": ("const int nvalid = min(BK, p.skv - kv0);",
+                           "const int nvalid = min(BK, p.skv - kv0)"
+                           " - (kv0 + BK >= p.skv);"),
+        "scale_1pct_high": ("? s[i][j] * p.scale",
+                            "? s[i][j] * (1.01f * p.scale)"),
+    },
 }
 
 
-def build_all(tmp: Path) -> dict[str, Path]:
+def build_all(tmp: Path) -> dict[tuple[str, str], Path]:
     from arbius_tpu_torch.ops import _build, flash
 
-    source = (_build.CSRC / flash.SOURCE).read_text()
     jobs = {}
-    for name, edit in MUTANTS.items():
-        text = source
-        if edit is not None:
-            if text.count(edit[0]) != 1:
-                raise RuntimeError(f"{name}: {edit[0]!r} not found once")
-            text = text.replace(*edit)
-        (tmp / f"{name}.cu").write_text(text)
-        jobs[name] = (tmp / f"{name}.cu", tmp / f"{name}.so")
+    for route, mutants in MUTANTS.items():
+        source = (_build.CSRC / flash.SOURCES[route]).read_text()
+        for name, edit in mutants.items():
+            text = source
+            if edit is not None:
+                if text.count(edit[0]) != 1:
+                    raise RuntimeError(f"{route} {name}: {edit[0]!r} not "
+                                       "found once")
+                text = text.replace(*edit)
+            src = tmp / f"{route}-{name}.cu"
+            src.write_text(text)
+            jobs[route, name] = (src, src.with_suffix(".so"))
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: _build.compile_library(*job),
                       jobs.values()))
-    return {name: so for name, (_, so) in jobs.items()}
+    return {key: so for key, (_, so) in jobs.items()}
 
 
-def run(torch, flash, name: str) -> dict:
+def run(torch, flash, route: str, name: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes, new_ok, old_ok = [], True, True
+    shapes, all_pass, all_fail, old_ok = [], True, True, True
     for b, h, sq, skv, d, _ in chip_smoke.MAIN_PATH_SHAPES:
         q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
                    .bfloat16() for s in (sq, skv, skv))
-        out = flash.flash_attention(q, k, v)
-        err, rms, ok = chip_smoke.kernel_error(torch, flash, q, k, v, out)
+        if route == "tensor_core" and flash.route_of(q, k, v) != route:
+            continue
+        out = flash.flash_attention(q, k, v, kernel=route)
+        err = chip_smoke.kernel_error(torch, flash, q, k, v, out, route)
         plain = flash.flash_attention_reference(q, k, v).float()
         old = torch.allclose(out.float(), plain, rtol=2e-2, atol=2e-2)
-        new_ok, old_ok = new_ok and ok, old_ok and old
-        shapes.append({"shape": [b, h, sq, skv, d], "max_abs_err": err,
-                       "ref_rms": rms, "passes": ok, "passes_old": old})
+        all_pass, all_fail = all_pass and err["ok"], all_fail and not err["ok"]
+        old_ok = old_ok and old
+        shapes.append({"shape": [b, h, sq, skv, d], **err,
+                       "passes_old": old})
         del q, k, v, out, plain
     torch.cuda.empty_cache()
-    return {"build": name, "passes_check": new_ok,
+    return {"route": route, "build": name, "passes_check": all_pass,
+            "fails_at_every_shape": all_fail,
             "passes_old_check": old_ok, "shapes": shapes}
 
 
@@ -89,18 +112,21 @@ def main() -> int:
 
     setup_device("cuda")
     print(card_info(), flush=True)
-    verdicts = {}
+    caught = True
     with tempfile.TemporaryDirectory() as tmp:
-        for name, so in build_all(Path(tmp)).items():
+        for (route, name), so in build_all(Path(tmp)).items():
             lib = ctypes.CDLL(str(so))
             flash._declare(lib)
-            _build._loaded[flash.SOURCE] = lib   # flash_attention loads this
-            result = run(torch, flash, name)
-            verdicts[name] = result["passes_check"]
+            # flash_attention loads the route's source through this cache
+            _build._loaded[flash.SOURCES[route]] = lib
+            result = run(torch, flash, route, name)
+            caught &= (result["passes_check"] if name == "faultless"
+                       else result["fails_at_every_shape"])
             print(json.dumps(result), flush=True)
-    _build._loaded.pop(flash.SOURCE)
-    caught = verdicts.pop("faultless") and not any(verdicts.values())
-    print(f"faultless build passes and every mutant fails: {caught}")
+    for source in flash.SOURCES.values():
+        _build._loaded.pop(source, None)
+    print(f"for each route the faultless build passes and every mutant "
+          f"fails at every shape: {caught}")
     return 0 if caught else 1
 
 
