@@ -5,6 +5,13 @@
 // [B, H, S, D] tensors, with the row statistics (running max m, normaliser
 // l) and the accumulator in float32, and the output cast to q's dtype.
 //
+// Which calls come here (ops/flash.py's route rule): float32 at every
+// head dim, and bf16 at a head dim the tensor-core routes do not take or
+// with strides that are not multiples of 8 elements or data that is not
+// 16-byte aligned. bf16 at 8 <= D <= 160 (the UNet) takes flash_attn_tc.cu
+// and bf16 at D = 512 (the VAE) flash_attn_tc_wide.cu; a caller can still
+// force this kernel on any input to check it against them.
+//
 // What bounds it on this card: at the UNet's self-attention shapes
 // (S = 4096, D = 40..160) the work is ~S/2 operations per byte of
 // q/k/v, far above the H100's ~295 FLOP/byte ridge, so the kernel is
@@ -30,9 +37,9 @@
 //     owns head-dim columns tx + 16*dj, held in registers (NDJ slots).
 //   - the key length is bounds-checked here: no padding in device memory.
 //     Masked scores are -inf, so they contribute exp(-inf) = 0.
-//   - head dims up to 512: D <= 256 uses 64-row query tiles; D = 512 (the
-//     VAE's single-head attention) uses 32-row query tiles so the
-//     accumulator stays at 64 registers and the tiles fit in shared memory.
+//   - head dims up to 512: D <= 256 uses 64-row query tiles; D = 512
+//     uses 32-row query tiles so the accumulator stays at 64 registers and
+//     the tiles fit in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

@@ -5,8 +5,9 @@
 // in arbius_tpu/ops/flash.py (:34-60): out = softmax(q k^T / sqrt(D)) v
 // over [B, H, S, D] tensors, with the running max m, the normaliser l and
 // the accumulator in float32, keys past S_kv masked, and the output cast
-// to q's dtype. The UNet's attentions (D = 40, 80, 160) come here; float32
-// and D = 512 (the VAE) take the CUDA-core kernel in flash_attn.cu.
+// to q's dtype. The UNet's attentions (D = 40, 80, 160) come here; bf16 at
+// D = 512 (the VAE) takes flash_attn_tc_wide.cu, and float32 the CUDA-core
+// kernel in flash_attn.cu.
 //
 // What bounds it on this card: at the large self-attention shapes
 // (S = 4096 x 4096, 1024 x 1024) operations, ~S/2 of them per byte of
@@ -43,97 +44,15 @@
 //     D is the product's n dimension in steps of 8, so D = 40 takes five
 //     8-wide tiles and nothing is padded there.
 //   - ragged query tiles are masked at the store.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "tensor_core.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;  // query rows per block
 constexpr int kBK = 64;           // keys per k/v tile
 constexpr int kMaxD = 160;
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int heads, sq, skv, d;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  float scale;
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (nothing is read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
-
-// c += a b: a 16x16 (row), b 16x8 (col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats -> bf16x2 (round to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Copy rows [row0, row0 + rows) of a [S, D] slab with row stride `ss`
 // into shared rows of pitch `pitch`; rows at or past `nvalid` are zeros.

@@ -3,9 +3,10 @@
 Each source under ``arbius_tpu_torch/csrc/`` is compiled into a library
 with a plain C interface and loaded with `ctypes`: a ``.cu`` source by
 ``nvcc`` for ``sm_90a`` (seconds to build; no PyTorch headers), a ``.cc``
-source by ``g++``. The library lands in ``arbius_tpu_torch/build/``,
-named by a hash of the source and flags, so an edited source is rebuilt
-and a stale library is never loaded. Nothing here runs at import time,
+source by ``g++``. A ``.cu`` source may include the headers
+(``csrc/*.cuh``). The library lands in ``arbius_tpu_torch/build/``,
+named by a hash of the source, the headers and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing here runs at import time,
 and nothing falls back: a host without the compiler raises.
 """
 from __future__ import annotations
@@ -55,20 +56,25 @@ def _flags(source: str) -> tuple[str, ...]:
 
 def library_path(source: str) -> Path:
     """Where the library for `source` (a file name under csrc/) goes."""
-    digest = hashlib.sha256((CSRC / source).read_bytes()
+    headers = sorted(CSRC.glob("*.cuh")) if source.endswith(".cu") else []
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in
+                                     [CSRC / source, *headers])
                             + " ".join(_flags(source)).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 
 
 def compile_library(src: Path, so: Path) -> None:
     """Compile the source file `src` into the library `so` (nvcc for
-    ``.cu``, g++ otherwise). The compiler's report (for nvcc: ptxas
-    registers, shared memory, spills) is kept beside it as ``.log``."""
-    compiler = find_nvcc() if src.suffix == ".cu" else find_gxx()
+    ``.cu``, with csrc/ on the include path, g++ otherwise). The
+    compiler's report (for nvcc: ptxas registers, shared memory, spills)
+    is kept beside it as ``.log``."""
+    cuda = src.suffix == ".cu"
+    compiler = find_nvcc() if cuda else find_gxx()
     so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.tmp{os.getpid()}")
     proc = subprocess.run(
-        [compiler, *_flags(src.name), "-o", str(tmp), str(src)],
+        [compiler, *_flags(src.name), *(("-I", str(CSRC)) if cuda else ()),
+         "-o", str(tmp), str(src)],
         capture_output=True, text=True, timeout=600)
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:

@@ -1,16 +1,21 @@
 """Exact softmax attention for [B, H, S, D]: the Hopper kernels and their
 plain PyTorch version, side by side.
 
-`flash_attention` launches one of two hand-written CUDA kernels, both
+`flash_attention` launches one of three hand-written CUDA kernels, all
 twins of the Pallas kernel in arbius_tpu/ops/flash.py (each source says
-what bounds it and how it is laid out):
+what bounds it and how it is laid out). The two tensor-core routes take
+bf16 with B/H/S strides that are multiples of 8 elements and 16-byte
+aligned data (their loads are 16-byte cp.async copies):
 
   - ``tensor_core`` (``csrc/flash_attn_tc.cu``): mma.sync with bf16
-    operands, for bf16 at 8 <= D <= 160, D % 8 == 0, with B/H/S strides
-    that are multiples of 8 elements and 16-byte aligned data (its loads
-    are 16-byte cp.async copies). The UNet's attentions take it.
+    operands, for 8 <= D <= 160, D % 8 == 0. The UNet's attentions take
+    it.
+  - ``tensor_core_wide`` (``csrc/flash_attn_tc_wide.cu``): mma.sync with
+    bf16 operands, the accumulator and S split over 8 warps, for
+    D = 512. The VAE's mid-block attention takes it.
   - ``cuda_core`` (``csrc/flash_attn.cu``): float32 arithmetic on the
-    CUDA cores, for everything else (float32, D = 512, odd strides).
+    CUDA cores, for everything else (float32, other head dims, odd
+    strides).
 
 `route` is the rule between them: a pure function of dtype, head dim,
 strides and pointers, so a given call always takes the same kernel and
@@ -22,7 +27,7 @@ dtype, softmax in float32, probabilities cast back to v's dtype.
 `attention` is what the models call: the kernels for every CUDA tensor,
 the plain version for a CPU tensor.
 
-Both kernels keep the scores, the softmax statistics and the accumulator
+All kernels keep the scores, the softmax statistics and the accumulator
 in float32, so their output is held against the plain version run in
 float32 on the same inputs, within `error_bound`.
 """
@@ -35,13 +40,15 @@ import torch
 
 from arbius_tpu_torch.ops import _build
 
-SOURCE = "flash_attn.cu"          # the cuda_core route
-TC_SOURCE = "flash_attn_tc.cu"    # the tensor_core route
-SOURCES = {"tensor_core": TC_SOURCE, "cuda_core": SOURCE}
+SOURCES = {"tensor_core": "flash_attn_tc.cu",
+           "tensor_core_wide": "flash_attn_tc_wide.cu",
+           "cuda_core": "flash_attn.cu"}
 _ENTRY = {"tensor_core": "arbius_flash_attn_tc_fwd",
+          "tensor_core_wide": "arbius_flash_attn_tc_wide_fwd",
           "cuda_core": "arbius_flash_attn_fwd"}
 MAX_HEAD_DIM = 512
 TC_MAX_HEAD_DIM = 160
+TC_WIDE_HEAD_DIM = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (atol, rtol) of a kernel's output against the plain version run in
 # float32 on the same inputs; see error_bound
@@ -67,9 +74,9 @@ def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       - bf16, cuda_core: 1e-4 + 2**-8 * |ref|: one rounding of the
         float32 result (<= 2**-9 of it), doubled, plus atol for float32
         summation order;
-      - bf16, tensor_core: 1e-4 + 2**-8 * (|ref| + P |V|): P is rounded
-        to bf16 before P V (<= 2**-9 of each p_i |v_i|, doubled as
-        above), while l sums the unrounded P.
+      - bf16, tensor_core and tensor_core_wide: 1e-4 + 2**-8 * (|ref| +
+        P |V|): P is rounded to bf16 before P V (<= 2**-9 of each
+        p_i |v_i|, doubled as above), while l sums the unrounded P.
     """
     if route not in SOURCES:
         raise ValueError(f"unknown route {route!r}")
@@ -79,20 +86,23 @@ def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q.float(),
                                    k.float()) * scale, dim=-1)
     size = torch.einsum("bhqk,bhkd->bhqd", p, vf).abs()
-    if route == "tensor_core" and q.dtype == torch.bfloat16:
+    if route != "cuda_core" and q.dtype == torch.bfloat16:
         size += torch.einsum("bhqk,bhkd->bhqd", p, vf.abs())
     return atol + rtol * size
 
 
 def route(dtype: torch.dtype, d: int, strides, pointers) -> str:
-    """The kernel a call takes: "tensor_core" for bf16 with
-    8 <= d <= 160, d % 8 == 0, every stride in `strides` (the B, H and S
-    strides of q, k and v, in elements) a multiple of 8 and every data
-    pointer in `pointers` 16-byte aligned; "cuda_core" otherwise."""
-    if (dtype == torch.bfloat16 and 8 <= d <= TC_MAX_HEAD_DIM and d % 8 == 0
-            and all(s % 8 == 0 for s in strides)
+    """The kernel a call takes. For bf16 with every stride in `strides`
+    (the B, H and S strides of q, k and v, in elements) a multiple of 8
+    and every data pointer in `pointers` 16-byte aligned:
+    "tensor_core" at 8 <= d <= 160 with d % 8 == 0, "tensor_core_wide"
+    at d = 512. "cuda_core" otherwise."""
+    if (dtype == torch.bfloat16 and all(s % 8 == 0 for s in strides)
             and all(ptr % 16 == 0 for ptr in pointers)):
-        return "tensor_core"
+        if 8 <= d <= TC_MAX_HEAD_DIM and d % 8 == 0:
+            return "tensor_core"
+        if d == TC_WIDE_HEAD_DIM:
+            return "tensor_core_wide"
     return "cuda_core"
 
 
@@ -150,7 +160,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "for CPU tensors")
     which = route_of(q, k, v)
     if kernel is not None:
-        if kernel not in SOURCES or (kernel == "tensor_core"
+        if kernel not in SOURCES or (kernel != "cuda_core"
                                      and which != kernel):
             raise ValueError(f"kernel {kernel!r} cannot take these inputs "
                              f"(their route is {which!r})")

@@ -7,26 +7,30 @@ Run from the root of a checkout on a machine with one CUDA card; it builds
 everything it needs from the checkout's sources. Phases, each printing
 its own lines with timings:
 
-  1. setup: the card's name and power limit; build both flash-attention
-     kernels, the tensor-core route (nvcc, csrc/flash_attn_tc.cu) and the
-     CUDA-core route (nvcc, csrc/flash_attn.cu), and the native PNG
-     deflate (g++), all at once; ptxas registers and spills per kernel.
+  1. setup: the card's name and power limit; build the three
+     flash-attention kernels, the tensor-core routes (nvcc,
+     csrc/flash_attn_tc.cu for D <= 160 and csrc/flash_attn_tc_wide.cu
+     for D = 512) and the CUDA-core route (nvcc, csrc/flash_attn.cu), and
+     the native PNG deflate (g++), all at once; ptxas registers and
+     spills per kernel (the wide kernel must not spill).
   2. kernels: each route against the plain PyTorch version run in
      float32 on the same inputs, at every shape the main path gives it:
-     the tensor-core route at the 8 bf16 UNet shapes, the CUDA-core route
-     at all 9 in bf16 and in float32; per element within
-     ops/flash.py's `error_bound` for that route, and bit-identical on
-     relaunch. Each route's time beside the plain version's, SDPA's (a
-     yardstick the port never calls) and the least time the card could
-     take.
+     the tensor-core route at the 8 bf16 UNet shapes, the wide
+     tensor-core route at the bf16 VAE shape, the CUDA-core route at all
+     9 in bf16 and in float32; per element within ops/flash.py's
+     `error_bound` for that route, and bit-identical on relaunch. Each
+     route's time beside the plain version's, SDPA's (a yardstick the
+     port never calls) and the least time the card could take.
   3. small reference: the tiny float32 config solved on the card and on
      the CPU from the same weights; uint8 pixels within one level.
   4. main path: anythingv3 at full width (seeded random weights) solves 6
      hydrated template tasks at 512x512, 20 steps, DPMSolverMultistep,
      canonical batch 4 (two chunks, the second padded); CIDv0s and
      32-byte commitments, finite non-constant images, and 641 kernel
-     launches per chunk (16 transformers x 2 attentions x 20 steps on the
-     tensor-core route + the VAE's one on the CUDA-core route).
+     launches per chunk, per route as `expected_launches` derives them
+     from ops/flash.py's rule (16 transformers x 2 attentions x 20 steps
+     on the tensor-core route + the VAE's one on the wide tensor-core
+     route, none on the CUDA-core route).
   5. determinism: a fresh pipeline solves the same tasks chunk by chunk
      with identical CIDs and the same launches per route, and one task
      keeps its CID among different neighbours.
@@ -58,12 +62,20 @@ MAIN_PATH_SHAPES = (
     (4, 1, 4096, 4096, 512, 1),
 )
 LAUNCHES_PER_CHUNK = sum(s[-1] for s in MAIN_PATH_SHAPES)   # 641
-# per route (ops/flash.py's rule): bf16 at D <= 160 takes the tensor cores
-EXPECTED_LAUNCHES = {
-    "tensor_core": sum(s[-1] for s in MAIN_PATH_SHAPES if s[4] <= 160),
-    "cuda_core": sum(s[-1] for s in MAIN_PATH_SHAPES if s[4] > 160)}
 STEPS, SIZE, SCHEDULER, CANONICAL_BATCH = 20, 512, "DPMSolverMultistep", 4
 ADDRESS = "0x" + "5a" * 20   # the miner address committed to
+
+
+def expected_launches(torch, flash) -> dict[str, int]:
+    """Launches per route for one 512x512 chunk: ops/flash.py's `route`
+    applied to each main-path shape in bf16, with the strides of the
+    models' q/k/v views ([B, S, H*D] viewed as [B, H, S, D]) and
+    16-byte aligned data."""
+    out = dict.fromkeys(flash.SOURCES, 0)
+    for b, h, sq, skv, d, count in MAIN_PATH_SHAPES:
+        strides = [st for s in (sq, skv, skv) for st in (s * h * d, d, h * d)]
+        out[flash.route(torch.bfloat16, d, strides, [0, 0, 0])] += count
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -107,28 +119,29 @@ def bound_ms(b, h, sq, skv, d, elem_bytes) -> tuple[float, float]:
     return ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+_SUMMED = ("ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms", "bound_ms")
+
+
 def phase_kernels(torch, flash) -> dict:
     """Check every route at every main-path shape it is given here, and
-    time the bf16 cases. Returns per route: sums over the launches of one
-    512x512 batch that the main path sends to it (ms, plain_ms,
-    library_ms, bound parts, launches_per_batch) and the check's worst
-    case."""
+    time the bf16 cases. Returns per route the check's worst case and
+    times summed over one 512x512 batch's calls (ms, plain_ms,
+    library_ms, bound parts): over the calls the main path sends to the
+    route (launches_per_batch of them), or, for a route the main path
+    does not launch, over the main path's calls at every bf16 shape the
+    route was checked at, as if they were forced onto it. `timed_at`
+    lists those shapes with their calls per batch."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {r: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0,
-               "bytes_ms": 0.0, "bound_ms": 0.0, "launches_per_batch": 0,
-               "cases": 0, "max_abs_err": 0.0, "err_over_bound": 0.0,
-               "library_ok": True}
-           for r in flash.SOURCES}
+    lines = []
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for b, h, sq, skv, d, count in MAIN_PATH_SHAPES:
             q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
                        .to(dtype) for s in (sq, skv, skv))
             main = flash.route_of(q, k, v)
-            routes = ["cuda_core"] if main == "cuda_core" else [
-                "tensor_core", "cuda_core"]
+            routes = [main] if main == "cuda_core" else [main, "cuda_core"]
             iters = 5 if sq * skv >= 1 << 20 else 20
             plain_ms = lib_ms = None
             if dtype == torch.bfloat16:
@@ -148,12 +161,6 @@ def phase_kernels(torch, flash) -> dict:
                 got = flash.flash_attention(q, k, v, kernel=route)
                 again = flash.flash_attention(q, k, v, kernel=route)
                 err = kernel_error(torch, flash, q, k, v, got, route)
-                tot = out[route]
-                tot["cases"] += 1
-                tot["max_abs_err"] = max(tot["max_abs_err"],
-                                         err["max_abs_err"])
-                tot["err_over_bound"] = max(tot["err_over_bound"],
-                                            err["err_over_bound"])
                 check(err["ok"], f"{route} kernel != plain at {name} "
                       f"{(b, h, sq, skv, d)}: {err}")
                 check(torch.equal(got, again), f"{route} kernel not "
@@ -168,22 +175,31 @@ def phase_kernels(torch, flash) -> dict:
                                 bound_ms=max(ops_ms, bytes_ms),
                                 bound_by="operations" if ops_ms >= bytes_ms
                                 else "bytes", launches_per_batch=count)
-                    if route == main:
-                        tot["launches_per_batch"] += count
-                        tot["ms"] += count * ms
-                        tot["plain_ms"] += count * plain_ms
-                        tot["library_ms"] += count * (lib_ms or 0.0)
-                        tot["library_ok"] &= lib_ms is not None
-                        tot["ops_ms"] += count * ops_ms
-                        tot["bytes_ms"] += count * bytes_ms
-                        tot["bound_ms"] += count * max(ops_ms, bytes_ms)
+                    if lib_ms is not None:
+                        line["vs_sdpa"] = ms / lib_ms
                 print("kernel " + json.dumps(line), flush=True)
+                lines.append({**line, "ops_ms": ops_ms, "bytes_ms": bytes_ms})
                 del got, again
             del q, k, v
         torch.cuda.empty_cache()
-    for tot in out.values():
-        if not tot.pop("library_ok"):
+    out = {}
+    for route in flash.SOURCES:
+        mine = [ln for ln in lines if ln["route"] == route]
+        timed = [ln for ln in mine if "ms" in ln]
+        on_path = [ln for ln in timed if ln["main_path"]]
+        timed = on_path or timed
+        tot = {key: sum(ln["launches_per_batch"] * (ln[key] or 0.0)
+                        for ln in timed) for key in _SUMMED}
+        if any(ln["library_ms"] is None for ln in timed):
             tot["library_ms"] = None
+        out[route] = {
+            **tot, "cases": len(mine),
+            "launches_per_batch": sum(ln["launches_per_batch"]
+                                      for ln in on_path),
+            "timed_at": [ln["shape"] + [ln["launches_per_batch"]]
+                         for ln in timed],
+            "max_abs_err": max(ln["max_abs_err"] for ln in mine),
+            "err_over_bound": max(ln["err_over_bound"] for ln in mine)}
     return out
 
 
@@ -270,7 +286,7 @@ def main() -> int:
         list(pool.map(_build.build, sources))   # one compiler per source
     print(f"setup: built {', '.join(sources)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for source in flash.SOURCES.values():
+    for route, source in flash.SOURCES.items():
         _build.load(source, flash._declare)
         report = _build.build_report(source).splitlines()
         spills = [r.strip() for r in report if "spill" in r]
@@ -278,25 +294,30 @@ def main() -> int:
                 if "registers" in r]
         for reg, spill in zip(regs, spills):   # one pair per instantiation
             print(f"  {source} ptxas: {reg}; {spill}")
+        if route == "tensor_core_wide":
+            check(spills and all("0 bytes spill stores, 0 bytes spill loads"
+                                 in r for r in spills),
+                  f"{source} spills registers: {spills}")
     check(_native.deflate_fixed() is not None,
           "native deflate (csrc/codecs.cc) did not build")
 
-    # -- 2. kernels: both routes ------------------------------------------
+    # -- 2. kernels: every route -----------------------------------------
+    expected = expected_launches(torch, flash)
     t0 = time.perf_counter()
     k = phase_kernels(torch, flash)
     per_batch = {r: t["launches_per_batch"] for r, t in k.items()}
-    check(per_batch == EXPECTED_LAUNCHES, f"main-path launches per route "
-          f"{per_batch}, expected {EXPECTED_LAUNCHES}")
-    kernel_ms = sum(t["ms"] for t in k.values())
+    check(per_batch == expected, f"main-path launches per route "
+          f"{per_batch}, expected {expected}")
+    kernel_ms = sum(t["ms"] for t in k.values() if t["launches_per_batch"])
     print(f"kernels: checked {sum(t['cases'] for t in k.values())} "
           f"route/shape/dtype cases in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for route, t in k.items():
         print(f"kernels: {route} per 512x512 batch ({t['launches_per_batch']}"
-              f" launches, bf16): kernel {t['ms']:.3f} ms, plain "
-              f"{t['plain_ms']:.3f} ms, sdpa {t['library_ms']} ms, bound "
-              f"{t['bound_ms']:.3f} ms; worst error/bound "
-              f"{t['err_over_bound']:.3f}", flush=True)
+              f" main-path launches, bf16, timed at {t['timed_at']}): kernel "
+              f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, sdpa "
+              f"{t['library_ms']} ms, bound {t['bound_ms']:.3f} ms; worst "
+              f"error/bound {t['err_over_bound']:.3f}", flush=True)
 
     # -- 3. small reference -----------------------------------------------
     phase_small_reference(torch)
@@ -324,10 +345,8 @@ def main() -> int:
           f"{wall:.2f} s ({len(items) / wall * 3600:.1f} solutions/h on "
           f"{card}); kernel launches {launches}", flush=True)
     check(flash.flash_attention.launches == LAUNCHES_PER_CHUNK * n_chunks
-          and launches == {r: n * n_chunks
-                           for r, n in EXPECTED_LAUNCHES.items()},
-          f"kernel launches {launches}, expected {EXPECTED_LAUNCHES} x "
-          f"{n_chunks}")
+          and launches == {r: n * n_chunks for r, n in expected.items()},
+          f"kernel launches {launches}, expected {expected} x {n_chunks}")
     for (taskid, _, _), (cid, files) in zip(todo, solved):
         check(len(cid) == 2 + 68 and cid.startswith("0x1220")
               and int(cid, 16) > 0, f"bad CIDv0 {cid}")
@@ -351,7 +370,7 @@ def main() -> int:
         again = solve_cid_batch(fresh, [items[i] for i in idx],
                                 canonical_batch=CANONICAL_BATCH)
         latencies.append(time.perf_counter() - t0)
-        check(flash.flash_attention.launches_by_route == EXPECTED_LAUNCHES,
+        check(flash.flash_attention.launches_by_route == expected,
               f"{flash.flash_attention.launches_by_route} launches in one "
               "chunk")
         for i, (cid, _) in zip(idx, again):
@@ -366,11 +385,13 @@ def main() -> int:
           f"are {kernel_ms / 10 / p50:.1f}% of p50", flush=True)
 
     bounds = {"tensor_core": "1e-4 + 2^-8 (|ref| + P|V|) in bf16",
+              "tensor_core_wide": "1e-4 + 2^-8 (|ref| + P|V|) in bf16",
               "cuda_core": "1e-4 + 2^-8 |ref| in bf16, "
                            "2e-5 + 2e-5 |ref| in float32"}
     entries = []
     for route, name in (("cuda_core", "flash_attention"),
-                        ("tensor_core", "flash_attention_tc")):
+                        ("tensor_core", "flash_attention_tc"),
+                        ("tensor_core_wide", "flash_attention_tc_wide")):
         t = k[route]
         entries.append({
             "name": name, "route": "cuda",
@@ -378,14 +399,15 @@ def main() -> int:
             "replaces": "arbius_tpu/ops/flash.py:34",
             "launches": launches[route],
             "max_abs_err": t["max_abs_err"],
-            # times: the calls of one 512x512 batch that the main path
-            # sends to this route (bf16), summed over shapes
+            # times: one 512x512 batch's calls (bf16) at timed_at,
+            # summed; see phase_kernels
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"]
             else "bytes",
             "library_ms": t["library_ms"],
             "launches_per_batch": t["launches_per_batch"],
+            "timed_at": t["timed_at"],
             # reached only if every check of phase 2 passed
             "check": {"cases": t["cases"],
                       "against": "plain version in float32, same inputs",

@@ -47,12 +47,16 @@ _CUDA_CORE_SHAPES = [(1, 2, 200, 200, 40), (2, 8, 256, 77, 80),
 _TENSOR_CORE_SHAPES = [(1, 2, 200, 200, 40), (2, 8, 256, 77, 80),
                        (1, 8, 64, 64, 160), (1, 2, 200, 333, 40),
                        (2, 3, 200, 77, 80), (1, 4, 200, 333, 160)]
+# the VAE's shape at 512x512, and ragged query and key lengths
+_WIDE_SHAPES = [(4, 1, 4096, 4096, 512), (1, 1, 200, 77, 512),
+                (2, 1, 1000, 1000, 512)]
 
 
 @pytest.mark.parametrize("route,dtype,b,h,sq,skv,d", [
     *(("cuda_core", dt, *s) for dt in (torch.float32, torch.bfloat16)
       for s in _CUDA_CORE_SHAPES),
     *(("tensor_core", torch.bfloat16, *s) for s in _TENSOR_CORE_SHAPES),
+    *(("tensor_core_wide", torch.bfloat16, *s) for s in _WIDE_SHAPES),
 ])
 def test_kernel_matches_plain(cuda, route, dtype, b, h, sq, skv, d):
     q, k, v = _inputs(cuda, b, h, sq, skv, d, dtype, seed=sq + d)
@@ -70,6 +74,18 @@ def test_tensor_core_route_is_batch_position_invariant(cuda):
     q, k, v = _inputs(cuda, 8, 2, 200, 333, 40, torch.bfloat16, seed=5)
     perm = torch.tensor([2, 3, 0, 1, 6, 7, 4, 5], device=cuda)
     assert flash.route_of(q, k, v) == "tensor_core"
+    assert torch.equal(flash.flash_attention(q[perm], k[perm], v[perm]),
+                       flash.flash_attention(q, k, v)[perm])
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", _WIDE_SHAPES)
+def test_wide_tensor_core_route_is_batch_position_invariant(cuda, b, h, sq,
+                                                            skv, d):
+    """Permuting the batch (doubled, so that B = 1 has a neighbour)
+    permutes the output bit for bit."""
+    q, k, v = _inputs(cuda, 2 * b, h, sq, skv, d, torch.bfloat16, seed=7)
+    perm = torch.arange(2 * b, device=cuda).roll(1)
+    assert flash.route_of(q, k, v) == "tensor_core_wide"
     assert torch.equal(flash.flash_attention(q[perm], k[perm], v[perm]),
                        flash.flash_attention(q, k, v)[perm])
 
@@ -94,6 +110,15 @@ def test_tensor_core_route_refuses_what_the_rule_sends_elsewhere(cuda):
     q = torch.zeros(1, 1, 64, 40, device=cuda)
     with pytest.raises(ValueError, match="cannot take"):
         flash.flash_attention(q, q, q, kernel="tensor_core")
+
+
+def test_wide_tensor_core_route_refuses_float32(cuda):
+    q = torch.zeros(1, 1, 64, 512, device=cuda)
+    before = flash.flash_attention.launches_by_route["tensor_core_wide"]
+    with pytest.raises(ValueError, match="cannot take"):
+        flash.flash_attention(q, q, q, kernel="tensor_core_wide")
+    assert flash.flash_attention.launches_by_route["tensor_core_wide"] == (
+        before)
 
 
 def test_conv_is_batch_position_invariant(cuda):

@@ -35,6 +35,7 @@ def _both(q, k, v, jdtype=jnp.float32, tdtype=torch.float32):
     (1, 2, 200, 200, 40),     # ragged seq + SD-1.5 level-0 head dim
     (1, 2, 256, 77, 64),      # cross-attention over 77 text tokens
     (1, 1, 128, 128, 128),    # exactly one tile
+    (1, 1, 200, 200, 512),    # ragged seq + the VAE's head dim
 ])
 def test_plain_matches_pallas_interpret_and_reference(b, h, sq, skv, d):
     q, k, v = _qkv((b, h, sq, d), (b, h, skv, d), seed=sq + d)

@@ -1,12 +1,15 @@
-"""The rule between the two attention kernels (`route`) and the error
+"""The rule between the three attention kernels (`route`) and the error
 bound their outputs are held to (`error_bound`), on the CPU.
 
-The tensor-core kernel (csrc/flash_attn_tc.cu) rounds the probabilities
-P to bf16 before P V; `_tensor_core_arithmetic` repeats its arithmetic in
+The tensor-core kernels (csrc/flash_attn_tc.cu, and
+csrc/flash_attn_tc_wide.cu for D = 512) round the probabilities P to
+bf16 before P V; `_tensor_core_arithmetic` repeats their arithmetic in
 plain torch (64-key tiles, online softmax in the log2 domain, P rounded
-to bf16, l summed from the unrounded P) so that the bound can be held
-against it here. The kernel itself is checked on the card
-(tests/test_torch_cuda.py, chip_smoke.py, tools/flash_mutants.py)."""
+to bf16, l summed from the unrounded P; for the wide kernel each tile's
+keys in two halves that share the row max and sum l apart) so that the
+bound can be held against it here. The kernels themselves are checked on
+the card (tests/test_torch_cuda.py, chip_smoke.py,
+tools/flash_mutants.py)."""
 from __future__ import annotations
 
 import math
@@ -17,6 +20,7 @@ import torch
 
 import chip_smoke
 from arbius_tpu_torch.models import common
+from arbius_tpu_torch.models.sd15 import vae
 from arbius_tpu_torch.ops import flash
 
 UNET_SHAPES = [s[:5] for s in chip_smoke.MAIN_PATH_SHAPES if s[4] <= 160]
@@ -32,12 +36,20 @@ def _route_contiguous(dtype, b, h, sq, skv, d, pointer=256):
 
 
 def test_unet_shapes_take_the_tensor_cores_and_the_vae_does_not():
+    """The UNet's shapes take the tensor_core route; the VAE's D = 512
+    does not: it takes tensor_core_wide."""
     assert len(UNET_SHAPES) == 8
     for shape in UNET_SHAPES:
         assert _route_contiguous(torch.bfloat16, *shape) == "tensor_core"
-    vae = [s[:5] for s in chip_smoke.MAIN_PATH_SHAPES if s[4] > 160]
-    assert vae == [(4, 1, 4096, 4096, 512)]
-    assert _route_contiguous(torch.bfloat16, *vae[0]) == "cuda_core"
+    vae_shapes = [s[:5] for s in chip_smoke.MAIN_PATH_SHAPES if s[4] > 160]
+    assert vae_shapes == [(4, 1, 4096, 4096, 512)]
+    assert _route_contiguous(torch.bfloat16, *vae_shapes[0]) == (
+        "tensor_core_wide")
+
+
+def test_chip_smoke_expects_each_main_path_launch_on_its_route():
+    assert chip_smoke.expected_launches(torch, flash) == {
+        "tensor_core": 640, "tensor_core_wide": 1, "cuda_core": 0}
 
 
 @pytest.mark.parametrize("d", [40, 80, 160])
@@ -62,8 +74,26 @@ def test_models_strided_views_take_the_tensor_cores(monkeypatch, d):
     assert seen == [("tensor_core", False)] * 2
 
 
+def test_vae_strided_views_take_the_wide_tensor_cores(monkeypatch):
+    """The VAE's mid-block attention (one head, D = channels = 512) hands
+    its [B, S, C] projections over as [B, 1, S, D] views."""
+    seen = []
+
+    def spy(q, k, v):
+        seen.append(flash.route_of(q, k, v))
+        return flash.flash_attention_reference(q, k, v)
+
+    monkeypatch.setattr(common, "fused_attention", spy)
+    torch.manual_seed(0)
+    mid = vae._MidAttention(512, torch.bfloat16)
+    with torch.no_grad():
+        out = mid(torch.randn(2, 512, 4, 4).bfloat16())
+    assert out.shape == (2, 512, 4, 4)
+    assert seen == ["tensor_core_wide"]
+
+
 @pytest.mark.parametrize("case", [
-    "float32", "d512", "d33", "d168", "d4", "s_stride", "h_stride",
+    "float32", "d384", "d33", "d168", "d4", "s_stride", "h_stride",
     "pointer"])
 def test_rule_sends_the_rest_to_the_cuda_cores(case):
     dtype, d, pointer = torch.bfloat16, 40, 256
@@ -82,6 +112,27 @@ def test_rule_sends_the_rest_to_the_cuda_cores(case):
     assert flash.route(dtype, d, strides, [256, 256, pointer]) == "cuda_core"
 
 
+@pytest.mark.parametrize("case", [
+    "bfloat16", "float32", "d384", "s_stride", "h_stride", "pointer"])
+def test_rule_at_d512_takes_the_wide_tensor_cores_only_for_aligned_bf16(
+        case):
+    dtype, d, pointer = torch.bfloat16, 512, 256
+    strides = list(_contiguous(4, 1, 64, 512)) * 3
+    if case == "float32":
+        dtype = torch.float32
+    elif case == "d384":
+        d = 384
+        strides = list(_contiguous(4, 1, 64, d)) * 3
+    elif case == "s_stride":
+        strides[5] = 516             # k's rows 516 elements apart
+    elif case == "h_stride":
+        strides[1] = 64 * 512 + 4
+    elif case == "pointer":
+        pointer = 256 + 2            # one bf16 element off 16 bytes
+    want = "tensor_core_wide" if case == "bfloat16" else "cuda_core"
+    assert flash.route(dtype, d, strides, [256, pointer, 256]) == want
+
+
 def test_route_of_reads_real_tensors():
     x = torch.zeros(2 * 8 * 64 * 40 + 1, dtype=torch.bfloat16)
     q = x[:-1].view(2, 8, 64, 40)
@@ -89,6 +140,10 @@ def test_route_of_reads_real_tensors():
     off = x[1:].view(2, 8, 64, 40)   # data pointer 2 bytes off
     assert flash.route_of(q, off, q) == "cuda_core"
     assert flash.route_of(q.float(), q.float(), q.float()) == "cuda_core"
+    y = torch.zeros(1 * 64 * 512 + 1, dtype=torch.bfloat16)
+    w = y[:-1].view(1, 1, 64, 512)
+    assert flash.route_of(w, w, w) == "tensor_core_wide"
+    assert flash.route_of(w, w, y[1:].view(1, 1, 64, 512)) == "cuda_core"
 
 
 def _qkv(b, h, sq, skv, d, seed):
@@ -98,26 +153,32 @@ def _qkv(b, h, sq, skv, d, seed):
             for s in (sq, skv, skv)]
 
 
-def _tensor_core_arithmetic(q, k, v, scale_factor=1.0, tile=64):
-    """The tensor-core kernel's arithmetic in plain torch: bf16 inputs,
+def _tensor_core_arithmetic(q, k, v, scale_factor=1.0, tile=64,
+                            halves=1):
+    """The tensor-core kernels' arithmetic in plain torch: bf16 inputs,
     float32 scores, online softmax over 64-key tiles with
     exp2(s * scale * log2(e) - m * scale * log2(e)), P rounded to bf16
-    for P V, l summed from the unrounded P, output rounded to bf16."""
+    for P V, l summed from the unrounded P, output rounded to bf16. With
+    `halves=2` (the wide kernel) each tile's keys are split in two halves
+    that share the row max; each half sums its own l, and the halves'
+    sums are added once, at the end."""
     sl2 = scale_factor / math.sqrt(q.shape[-1]) * math.log2(math.e)
     qf, kf, vf = q.float(), k.float(), v.float()
+    part = tile // halves
     m = torch.full(q.shape[:3], -math.inf)
-    l = torch.zeros(q.shape[:3])
+    l = torch.zeros((halves, *q.shape[:3]))
     o = torch.zeros(q.shape)
     for kv0 in range(0, k.shape[2], tile):
         s = qf @ kf[:, :, kv0:kv0 + tile].transpose(-1, -2)
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp2((m - m_new) * sl2)
         p = torch.exp2(s * sl2 - (m_new * sl2)[..., None])
-        l = l * alpha + p.sum(-1)
+        l = l * alpha + torch.stack([p[..., i * part:(i + 1) * part].sum(-1)
+                                     for i in range(halves)])
         o = o * alpha[..., None] + p.bfloat16().float() @ vf[:, :, kv0:kv0
                                                                + tile]
         m = m_new
-    return (o / l[..., None]).bfloat16()
+    return (o / l.sum(0)[..., None]).bfloat16()
 
 
 def _within(out, q, k, v, route):
@@ -145,6 +206,29 @@ def test_scale_one_percent_high_breaks_the_bound(d, skv):
     assert not _within(out, q, k, v, "tensor_core")
 
 
+@pytest.mark.parametrize("sq", [48, 200])
+@pytest.mark.parametrize("skv", [48, 77, 100])
+def test_wide_tensor_core_arithmetic_lies_within_its_bound(sq, skv):
+    q, k, v = _qkv(1, 1, sq, skv, 512, seed=sq + skv)
+    out = _tensor_core_arithmetic(q, k, v, halves=2)
+    assert _within(out, q, k, v, "tensor_core_wide")
+    assert not _within(out, q, k, v, "cuda_core")
+
+
+@pytest.mark.parametrize("sq", [48, 200])
+@pytest.mark.parametrize("skv", [48, 77, 100])
+def test_wide_scale_one_percent_high_breaks_the_bound(sq, skv):
+    q, k, v = _qkv(1, 1, sq, skv, 512, seed=sq + skv)
+    out = _tensor_core_arithmetic(q, k, v, scale_factor=1.01, halves=2)
+    assert not _within(out, q, k, v, "tensor_core_wide")
+
+
+def test_wide_route_is_held_to_the_tensor_core_bound():
+    q, k, v = _qkv(2, 1, 64, 77, 512, seed=2)
+    assert torch.equal(flash.error_bound(q, k, v, "tensor_core_wide"),
+                       flash.error_bound(q, k, v, "tensor_core"))
+
+
 def test_cuda_core_bound_is_one_bf16_rounding():
     q, k, v = _qkv(1, 2, 64, 77, 40, seed=1)
     ref = flash.flash_attention_reference(q.float(), k.float(), v.float())
@@ -164,4 +248,4 @@ def test_reset_launches_zeroes_every_count():
     flash.reset_launches()
     assert flash.flash_attention.launches == 0
     assert flash.flash_attention.launches_by_route == {
-        "tensor_core": 0, "cuda_core": 0}
+        "tensor_core": 0, "tensor_core_wide": 0, "cuda_core": 0}

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Show that chip_smoke.py's kernel check catches a subtly wrong kernel,
-on each of the two attention routes.
+on each of the three attention routes.
 
     python3 tools/flash_mutants.py
 
 Needs one CUDA card and nvcc; imports torch and the port only. For each
-kernel source (csrc/flash_attn_tc.cu, the tensor-core route, and
+kernel source (csrc/flash_attn_tc.cu, the tensor-core route,
+csrc/flash_attn_tc_wide.cu, the wide tensor-core route, and
 csrc/flash_attn.cu, the CUDA-core route) builds the source and copies of
 it with one deliberate fault each (MUTANTS) into a temporary directory,
 all at once, and runs each build at the bf16 main-path shapes its route
-takes (the tensor-core route at the 8 UNet shapes, the CUDA-core route at
-all 9) through chip_smoke.py's check: the kernel against the plain
+takes (the tensor-core route at the 8 UNet shapes, the wide one at the
+VAE's, the CUDA-core route at all 9) through chip_smoke.py's check: the kernel against the plain
 version in float32 on the same inputs, within ops/flash.py's
 `error_bound` for the route. For each build it prints one JSON line: the
 largest error, the output's RMS and the worst error/bound per shape,
@@ -37,14 +38,16 @@ import chip_smoke  # noqa: E402
 # route -> name -> (text in the route's source, its replacement); None: no
 # fault. Each route's two faults: the last key of every sequence is left
 # out of the softmax; the scores are scaled by 1.01 / sqrt(D).
+_TENSOR_CORE_FAULTS = {
+    "faultless": None,
+    "drops_last_key": ("const int kv_end = p.skv;",
+                       "const int kv_end = p.skv - 1;"),
+    "scale_1pct_high": ("const float sl2 = p.scale * kLog2e;",
+                        "const float sl2 = 1.01f * p.scale * kLog2e;"),
+}
 MUTANTS = {
-    "tensor_core": {
-        "faultless": None,
-        "drops_last_key": ("const int kv_end = p.skv;",
-                           "const int kv_end = p.skv - 1;"),
-        "scale_1pct_high": ("const float sl2 = p.scale * kLog2e;",
-                            "const float sl2 = 1.01f * p.scale * kLog2e;"),
-    },
+    "tensor_core": _TENSOR_CORE_FAULTS,
+    "tensor_core_wide": _TENSOR_CORE_FAULTS,
     "cuda_core": {
         "faultless": None,
         "drops_last_key": ("const int nvalid = min(BK, p.skv - kv0);",
@@ -84,7 +87,7 @@ def run(torch, flash, route: str, name: str) -> dict:
     for b, h, sq, skv, d, _ in chip_smoke.MAIN_PATH_SHAPES:
         q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
                    .bfloat16() for s in (sq, skv, skv))
-        if route == "tensor_core" and flash.route_of(q, k, v) != route:
+        if route != "cuda_core" and flash.route_of(q, k, v) != route:
             continue
         out = flash.flash_attention(q, k, v, kernel=route)
         err = chip_smoke.kernel_error(torch, flash, q, k, v, out, route)
