@@ -1,18 +1,49 @@
-"""The solve path of the port: runner, registry entry, factory."""
-from arbius_tpu_torch.node.factory import build_anythingv3
+"""Miner node (L3'): event loop, job queue, solver pipeline, stake
+manager, for the port. Mirrors arbius_tpu/node's exports apart from the
+parts that wait for a later slice (the JSON-RPC chain, the other
+families' runners, the staged pipeline)."""
+from arbius_tpu_torch.node.chain_client import LocalChain
+from arbius_tpu_torch.node.config import (
+    AutomineConfig,
+    ConfigError,
+    DeploymentConfig,
+    MiningConfig,
+    ModelConfig,
+    PipelineConfig,
+    SchedConfig,
+    StakeConfig,
+    load_config,
+    load_deployment,
+)
+from arbius_tpu_torch.node.db import Job, NodeDB
+from arbius_tpu_torch.node.factory import build_anythingv3, build_registry
+from arbius_tpu_torch.node.node import BootError, MinerNode, NodeMetrics
+from arbius_tpu_torch.node.pinners import (
+    HttpDaemonPinner,
+    LocalPinner,
+    PinMismatchError,
+)
+from arbius_tpu_torch.node.retry import RetriesExhausted, expretry
 from arbius_tpu_torch.node.solver import (
+    ModelRegistry,
     RegisteredModel,
     SD15Runner,
     chunk_items,
+    solve_cid,
     solve_cid_batch,
+    solve_files,
     solve_files_batch,
 )
+from arbius_tpu_torch.node.store import ContentStore, cid_b58
+from arbius_tpu_torch.obs import Obs
 
 __all__ = [
-    "RegisteredModel",
-    "SD15Runner",
-    "build_anythingv3",
-    "chunk_items",
-    "solve_cid_batch",
-    "solve_files_batch",
+    "AutomineConfig", "BootError", "ConfigError", "ContentStore",
+    "DeploymentConfig", "HttpDaemonPinner", "Job", "LocalChain",
+    "LocalPinner", "MinerNode", "MiningConfig", "ModelConfig",
+    "ModelRegistry", "NodeDB", "NodeMetrics", "Obs", "PinMismatchError",
+    "PipelineConfig", "RegisteredModel", "RetriesExhausted", "SD15Runner",
+    "SchedConfig", "StakeConfig", "build_anythingv3", "build_registry",
+    "chunk_items", "cid_b58", "expretry", "load_config", "load_deployment",
+    "solve_cid", "solve_cid_batch", "solve_files", "solve_files_batch",
 ]

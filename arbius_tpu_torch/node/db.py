@@ -1,0 +1,491 @@
+"""Node persistence: sqlite-backed job queue + protocol-state cache.
+
+The store IS the checkpoint (SURVEY.md §5): jobs, tasks, inputs, solutions
+survive restarts; re-scheduling job types are cleared at boot by the node.
+Schema follows the reference's eight tables (`miner/src/db.ts:24-52`,
+`miner/src/sql/*.sql`) with the same queue semantics:
+
+  - jobs ordered by priority DESC, gated on waituntil <= now
+    (`db.ts:131-144`)
+  - task rows cache chain state; INSERT OR IGNORE dedupes replayed events
+    (`db.ts:157`)
+  - the per-task seed is derived, not stored — re-injected on read
+    (`db.ts:107-110`) so a corrupted row can never change determinism
+
+`:memory:` works for tests; a path gives durability.
+
+Write batching: every mutator used to issue its own `commit()` — one
+fsync per `queue_job`/`delete_job`, dozens per tick. `batch()` opens a
+deferred-commit window (the node wraps each tick in one) so one tick is
+ONE sqlite commit; `arbius_db_commits_total` / `arbius_db_commit_seconds`
+in the ambient obs registry show the win. Crash semantics are unchanged:
+a tick that dies mid-batch loses only bookkeeping that re-derives from
+the chain on restart (jobs not yet deleted re-run; chain writes are
+idempotent against replay).
+"""
+from __future__ import annotations
+
+import json
+import sqlite3
+import threading
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass
+
+from arbius_tpu_torch.l0.commitment import taskid2seed
+from arbius_tpu_torch.obs import current_obs
+
+_SCHEMA = """
+CREATE TABLE IF NOT EXISTS tasks (
+    id TEXT PRIMARY KEY, modelid TEXT, fee TEXT, address TEXT,
+    blocktime TEXT, version INT, cid TEXT, retracted BOOLEAN DEFAULT FALSE);
+CREATE TABLE IF NOT EXISTS task_inputs (
+    taskid TEXT PRIMARY KEY, cid TEXT, data TEXT);
+CREATE TABLE IF NOT EXISTS solutions (
+    taskid TEXT PRIMARY KEY, validator TEXT, blocktime TEXT,
+    claimed BOOLEAN, cid TEXT);
+CREATE TABLE IF NOT EXISTS contestations (
+    taskid TEXT PRIMARY KEY, validator TEXT, blocktime TEXT,
+    finish_start_index INT);
+CREATE TABLE IF NOT EXISTS contestation_votes (
+    taskid TEXT, validator TEXT, yea BOOLEAN,
+    PRIMARY KEY (taskid, validator));
+CREATE TABLE IF NOT EXISTS invalid_tasks (
+    taskid TEXT PRIMARY KEY);
+CREATE TABLE IF NOT EXISTS jobs (
+    id INTEGER PRIMARY KEY AUTOINCREMENT, priority INTEGER,
+    waituntil INTEGER, concurrent BOOLEAN, method TEXT, data TEXT);
+CREATE TABLE IF NOT EXISTS failed_jobs (
+    id INTEGER PRIMARY KEY AUTOINCREMENT, method TEXT, data TEXT);
+CREATE TABLE IF NOT EXISTS pipeline_state (
+    taskid TEXT PRIMARY KEY, stage TEXT, cid TEXT);
+CREATE TABLE IF NOT EXISTS cost_model (
+    model TEXT, bucket TEXT, layout TEXT, mode TEXT DEFAULT 'bf16',
+    chip_seconds REAL, samples INT, updated INT,
+    PRIMARY KEY (model, bucket, layout, mode));
+CREATE TABLE IF NOT EXISTS perf_cards (
+    model TEXT, bucket TEXT, layout TEXT, mode TEXT DEFAULT 'bf16',
+    card TEXT, updated INT,
+    PRIMARY KEY (model, bucket, layout, mode));
+CREATE INDEX IF NOT EXISTS jobs_priority ON jobs(priority);
+"""
+
+
+@dataclass
+class Job:
+    id: int
+    priority: int
+    waituntil: int
+    concurrent: bool
+    method: str
+    data: dict
+
+
+class NodeDB:
+    def __init__(self, path: str = ":memory:",
+                 busy_timeout_ms: int = 5000):
+        self._conn = sqlite3.connect(path, check_same_thread=False)
+        self._conn.row_factory = sqlite3.Row
+        self._lock = threading.Lock()
+        # batch windows are PER THREAD: the tick thread defers its own
+        # commits, but a ControlRPC handler thread that queues a job
+        # mid-tick must still fsync before acknowledging the client
+        # (its commit also flushes the tick's writes so far — early
+        # durability, exactly what each op did before batching existed)
+        self._batch = threading.local()
+        with self._lock:
+            # WAL + busy_timeout (conclint CONC406, docs/concurrency.md):
+            # a reader proceeds under a writer mid-commit (ControlRPC
+            # views vs the tick's batch window) and contention becomes a
+            # bounded wait instead of an instant "database is locked".
+            # On :memory: the WAL pragma is a no-op — harmless.
+            self._conn.execute(f"PRAGMA busy_timeout={int(busy_timeout_ms)}")
+            self._conn.execute("PRAGMA journal_mode=WAL")
+            self._migrate_cost_model()
+            self._conn.executescript(_SCHEMA)
+
+    def _migrate_cost_model(self) -> None:
+        """Migrate a pre-quant `cost_model` table in place: the
+        precision mode joined the primary key (docs/quantization.md —
+        rows at different modes must coexist, so ALTER TABLE ADD COLUMN
+        is not enough), and every pre-quant row priced the bf16
+        programs, so the copy stamps mode='bf16'. Runs before the
+        schema script (CREATE IF NOT EXISTS would freeze the old
+        shape); a fresh or already-migrated file is a no-op. The
+        rename/copy/drop runs as ONE transaction (sqlite DDL is
+        transactional) — a crash mid-migration must roll back to the
+        old table, never strand the learned rows in a renamed husk."""
+        cols = [r[1] for r in self._conn.execute(
+            "PRAGMA table_info(cost_model)")]
+        if not cols or "mode" in cols:
+            return
+        self._conn.executescript("""
+            BEGIN;
+            ALTER TABLE cost_model RENAME TO cost_model_premode;
+            CREATE TABLE cost_model (
+                model TEXT, bucket TEXT, layout TEXT,
+                mode TEXT DEFAULT 'bf16',
+                chip_seconds REAL, samples INT, updated INT,
+                PRIMARY KEY (model, bucket, layout, mode));
+            INSERT INTO cost_model
+                SELECT model, bucket, layout, 'bf16',
+                       chip_seconds, samples, updated
+                FROM cost_model_premode;
+            DROP TABLE cost_model_premode;
+            COMMIT;
+        """)
+
+    def _batch_depth(self) -> int:
+        return getattr(self._batch, "depth", 0)
+
+    def close(self):
+        # detlint: allow[CONC404] teardown-only: node.close() stops the
+        # encode pool first, and the queue-depth gauge's job_count
+        # tolerates a closed handle (it answers NaN, never crashes a
+        # scrape) — taking _lock here could deadlock a dying tick
+        self._conn.close()
+
+    def _commit(self) -> None:
+        """Commit unless the CALLING THREAD holds an open `batch()`
+        window (caller holds `self._lock`). Each real commit is timed
+        into the ambient obs registry — the fsync is the cost batching
+        exists to amortize."""
+        if self._batch_depth() > 0:
+            return
+        obs = current_obs()
+        if obs is None:
+            self._conn.commit()
+            return
+        # detlint: allow[DET101] obs fsync timing; never reaches solve bytes
+        t0 = time.perf_counter()
+        self._conn.commit()
+        obs.registry.counter(
+            "arbius_db_commits_total",
+            "sqlite transaction commits (fsyncs) issued by the node db"
+        ).inc()
+        obs.registry.histogram(
+            "arbius_db_commit_seconds",
+            "Wall seconds per sqlite commit (one per tick under batch())"
+            # detlint: allow[DET101] obs fsync timing; never reaches solve bytes
+        ).observe(time.perf_counter() - t0)
+
+    @contextmanager
+    def batch(self):
+        """Deferred-commit window for the calling thread: its mutators
+        skip their own `commit()`; the window's exit issues ONE commit
+        (nesting collapses to the outermost). The node wraps each tick
+        in this so a tick's whole claim/delete cycle is a single fsync.
+        Other threads' writes stay synchronous — they commit (and flush
+        the window's writes so far) before returning.
+
+        Process-death semantics are deliberate: a BaseException that is
+        not an Exception (SimCrash, KeyboardInterrupt — the kill -9
+        class) exits WITHOUT committing, losing the window exactly as a
+        real kill would, so the simnet crash scenarios exercise genuine
+        lost-window recovery (jobs not yet deleted re-run; chain writes
+        are idempotent against replay). Ordinary Exceptions still
+        commit the partial window — no worse than the old per-op
+        commits."""
+        self._batch.depth = self._batch_depth() + 1
+        try:
+            yield self
+        except Exception:
+            raise
+        except BaseException:
+            if self._batch.depth == 1:   # outermost window only
+                self._batch.dying = True
+            raise
+        finally:
+            self._batch.depth -= 1
+            if self._batch.depth == 0:
+                if getattr(self._batch, "dying", False):
+                    self._batch.dying = False
+                    with self._lock:
+                        # discard the window like the kill it models —
+                        # leaving it pending would let a later commit
+                        # resurrect a half-tick
+                        self._conn.rollback()
+                else:
+                    with self._lock:
+                        self._commit()
+
+    # -- jobs (priority queue, db.ts:131-144 / :237-267) -----------------
+    def queue_job(self, method: str, data: dict, *, priority: int = 0,
+                  waituntil: int = 0, concurrent: bool = False) -> int:
+        with self._lock:
+            cur = self._conn.execute(
+                "INSERT INTO jobs (priority, waituntil, concurrent, method,"
+                " data) VALUES (?,?,?,?,?)",
+                (priority, waituntil, int(concurrent), method,
+                 json.dumps(data, sort_keys=True)))
+            self._commit()
+            return cur.lastrowid
+
+    def has_job(self, method: str, data: dict) -> bool:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT COUNT(*) AS n FROM jobs WHERE method = ? AND data = ?",
+                (method, json.dumps(data, sort_keys=True))).fetchone()
+            return row["n"] > 0
+
+    def get_jobs(self, now: int, limit: int = 100) -> list[Job]:
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT * FROM jobs WHERE waituntil <= ? "
+                "ORDER BY priority DESC, id ASC LIMIT ?", (now, limit))
+            return [Job(r["id"], r["priority"], r["waituntil"],
+                        bool(r["concurrent"]), r["method"],
+                        json.loads(r["data"])) for r in rows]
+
+    def delete_job(self, job_id: int) -> None:
+        with self._lock:
+            self._conn.execute("DELETE FROM jobs WHERE id = ?", (job_id,))
+            self._commit()
+
+    def clear_jobs_by_method(self, method: str) -> None:
+        """Boot-time dedupe of self-rescheduling jobs (index.ts:977-979)."""
+        with self._lock:
+            self._conn.execute("DELETE FROM jobs WHERE method = ?", (method,))
+            self._commit()
+
+    def fail_job(self, job: Job) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO failed_jobs (method, data) VALUES (?,?)",
+                (job.method, json.dumps(job.data, sort_keys=True)))
+            self._conn.execute("DELETE FROM jobs WHERE id = ?", (job.id,))
+            self._commit()
+
+    def failed_jobs(self) -> list[tuple[str, dict]]:
+        with self._lock:
+            rows = self._conn.execute("SELECT method, data FROM failed_jobs")
+            return [(r["method"], json.loads(r["data"])) for r in rows]
+
+    def job_count(self) -> int:
+        with self._lock:
+            return self._conn.execute("SELECT COUNT(*) c FROM jobs"
+                                      ).fetchone()["c"]
+
+    def count_jobs(self, methods: tuple[str, ...]) -> int:
+        """Jobs (due or waiting) whose method is in `methods` — the
+        fleet worker's backlog gate (docs/fleet.md): lease pulls stop
+        while this many task/solve jobs are already in flight."""
+        marks = ",".join("?" * len(methods))
+        with self._lock:
+            return self._conn.execute(
+                f"SELECT COUNT(*) c FROM jobs WHERE method IN ({marks})",
+                tuple(methods)).fetchone()["c"]
+
+    # -- task cache ------------------------------------------------------
+    def store_task(self, taskid: str, modelid: str, fee: int, address: str,
+                   blocktime: int, version: int, cid: str) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR IGNORE INTO tasks (id, modelid, fee, address,"
+                " blocktime, version, cid) VALUES (?,?,?,?,?,?,?)",
+                (taskid, modelid, str(fee), address, str(blocktime),
+                 version, cid))
+            self._commit()
+
+    def get_task(self, taskid: str) -> sqlite3.Row | None:
+        with self._lock:
+            return self._conn.execute("SELECT * FROM tasks WHERE id = ?",
+                                      (taskid,)).fetchone()
+
+    def store_task_input(self, taskid: str, cid: str, data: dict) -> None:
+        stored = {k: v for k, v in data.items() if k != "seed"}
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR IGNORE INTO task_inputs (taskid, cid, data)"
+                " VALUES (?,?,?)",
+                (taskid, cid, json.dumps(stored, sort_keys=True)))
+            self._commit()
+
+    def get_task_input(self, taskid: str) -> dict | None:
+        """Seed is always re-derived from the taskid on read (db.ts:107-110):
+        the determinism root can't be corrupted by a bad row."""
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT data FROM task_inputs WHERE taskid = ?",
+                (taskid,)).fetchone()
+        if row is None:
+            return None
+        data = json.loads(row["data"])
+        data["seed"] = taskid2seed(taskid)
+        return data
+
+    # -- solutions / contestations / invalid tasks -----------------------
+    def store_solution(self, taskid: str, validator: str, blocktime: int,
+                       claimed: bool, cid: str) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR REPLACE INTO solutions (taskid, validator,"
+                " blocktime, claimed, cid) VALUES (?,?,?,?,?)",
+                (taskid, validator, str(blocktime), int(claimed), cid))
+            self._commit()
+
+    def get_solution(self, taskid: str) -> sqlite3.Row | None:
+        with self._lock:
+            return self._conn.execute(
+                "SELECT * FROM solutions WHERE taskid = ?",
+                (taskid,)).fetchone()
+
+    def mark_invalid_task(self, taskid: str) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR IGNORE INTO invalid_tasks (taskid) VALUES (?)",
+                (taskid,))
+            self._commit()
+
+    def is_invalid_task(self, taskid: str) -> bool:
+        with self._lock:
+            return self._conn.execute(
+                "SELECT 1 FROM invalid_tasks WHERE taskid = ?",
+                (taskid,)).fetchone() is not None
+
+    # -- pipeline checkpoint (docs/pipeline.md) --------------------------
+    def set_pipeline_stage(self, taskid: str, stage: str, cid: str) -> None:
+        """Record how far a task got through the staged solve executor.
+        Written AFTER the stage's side effect lands (pin stored, commit
+        accepted on-chain, …), so a recorded stage is always a true
+        statement about the world — crash-restart may trust it."""
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR REPLACE INTO pipeline_state (taskid, stage, cid)"
+                " VALUES (?,?,?)", (taskid, stage, cid))
+            self._commit()
+
+    def get_pipeline_stage(self, taskid: str) -> tuple[str, str] | None:
+        """(stage, cid) a previous life recorded for this task, or None."""
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT stage, cid FROM pipeline_state WHERE taskid = ?",
+                (taskid,)).fetchone()
+        return (row["stage"], row["cid"]) if row is not None else None
+
+    def clear_pipeline_state(self, taskid: str) -> None:
+        with self._lock:
+            self._conn.execute(
+                "DELETE FROM pipeline_state WHERE taskid = ?", (taskid,))
+            self._commit()
+
+    # -- learned cost model (docs/scheduler.md) --------------------------
+    def upsert_cost_rows(self, rows: list[tuple]) -> None:
+        """Persist fitted cost-model rows: (model, bucket, layout, mode,
+        chip_seconds, samples, updated). Written inside the tick's
+        batch window, so refits cost no extra fsync."""
+        with self._lock:
+            self._conn.executemany(
+                "INSERT OR REPLACE INTO cost_model (model, bucket, layout,"
+                " mode, chip_seconds, samples, updated)"
+                " VALUES (?,?,?,?,?,?,?)",
+                rows)
+            self._commit()
+
+    def load_cost_rows(self) -> list[tuple]:
+        """Every persisted (model, bucket, layout, mode, chip_seconds,
+        samples, updated) row, deterministically ordered."""
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT model, bucket, layout, mode, chip_seconds,"
+                " samples, updated FROM cost_model"
+                " ORDER BY model, bucket, layout, mode")
+            return [(r["model"], r["bucket"], r["layout"], r["mode"],
+                     float(r["chip_seconds"]), int(r["samples"]),
+                     int(r["updated"])) for r in rows]
+
+    def clear_cost_model(self) -> None:
+        with self._lock:
+            self._conn.execute("DELETE FROM cost_model")
+            self._commit()
+
+    # -- perf cards (docs/perfscope.md) ----------------------------------
+    def upsert_perf_cards(self, rows: list[tuple]) -> None:
+        """Persist perfscope cards: (model, bucket, layout, mode,
+        card_json, updated). Written inside the tick's batch window —
+        like cost rows, cards cost no extra fsync."""
+        with self._lock:
+            self._conn.executemany(
+                "INSERT OR REPLACE INTO perf_cards (model, bucket,"
+                " layout, mode, card, updated) VALUES (?,?,?,?,?,?)",
+                rows)
+            self._commit()
+
+    def load_perf_cards(self) -> list[tuple]:
+        """Every persisted (model, bucket, layout, mode, card_dict,
+        updated) row, deterministically ordered — what the
+        tools/perfscope.py auditor and the costmodel --dump join read."""
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT model, bucket, layout, mode, card, updated"
+                " FROM perf_cards ORDER BY model, bucket, layout, mode")
+            return [(r["model"], r["bucket"], r["layout"], r["mode"],
+                     json.loads(r["card"]), int(r["updated"]))
+                    for r in rows]
+
+    def store_contestation(self, taskid: str, validator: str,
+                           blocktime: int) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR IGNORE INTO contestations (taskid, validator,"
+                " blocktime, finish_start_index) VALUES (?,?,?,0)",
+                (taskid, validator, str(blocktime)))
+            self._commit()
+
+    def prune_before(self, cutoff: int) -> int:
+        """GC: drop ALL rows of claimed tasks older than `cutoff` (the
+        reference's pinata_unpin_old_files.ts equivalent — bounded local
+        state instead of unbounded pin storage). Returns tasks removed."""
+        with self._lock:
+            cur = self._conn.execute(
+                "DELETE FROM tasks WHERE CAST(blocktime AS INTEGER) < ? "
+                "AND id IN (SELECT taskid FROM solutions WHERE claimed = 1)",
+                (cutoff,))
+            for table in ("task_inputs", "solutions", "contestations",
+                          "contestation_votes", "invalid_tasks",
+                          "pipeline_state"):
+                self._conn.execute(
+                    f"DELETE FROM {table} WHERE taskid NOT IN "
+                    "(SELECT id FROM tasks)")
+            self._commit()
+            return cur.rowcount
+
+    # the explorer/task/history pages all read the same task+solution view
+    _TASK_VIEW = (
+        "SELECT t.id, t.modelid, t.fee, t.address, t.blocktime, "
+        "s.validator, s.cid, s.claimed, "
+        "(SELECT 1 FROM invalid_tasks i WHERE i.taskid = t.id) inv "
+        "FROM tasks t LEFT JOIN solutions s ON s.taskid = t.id ")
+
+    def recent_tasks(self, limit: int = 50) -> list[sqlite3.Row]:
+        """Task + solution join for the explorer, newest first."""
+        with self._lock:
+            return self._conn.execute(
+                self._TASK_VIEW + "ORDER BY t.rowid DESC LIMIT ?",
+                (limit,)).fetchall()
+
+    def task_view(self, taskid: str) -> sqlite3.Row | None:
+        """One task + solution join row (the task page's data source)."""
+        with self._lock:
+            return self._conn.execute(
+                self._TASK_VIEW + "WHERE t.id = ?", (taskid,)).fetchone()
+
+    def tasks_by_address(self, address: str,
+                         limit: int = 100) -> list[sqlite3.Row]:
+        """Address history: tasks submitted by OR solved by `address`
+        (the reference dapp's history/[address] page)."""
+        addr = address.lower()
+        with self._lock:
+            return self._conn.execute(
+                self._TASK_VIEW +
+                "WHERE lower(t.address) = ? OR lower(s.validator) = ? "
+                "ORDER BY t.rowid DESC LIMIT ?",
+                (addr, addr, limit)).fetchall()
+
+    def store_vote(self, taskid: str, validator: str, yea: bool) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR IGNORE INTO contestation_votes (taskid,"
+                " validator, yea) VALUES (?,?,?)", (taskid, validator,
+                                                    int(yea)))
+            self._commit()

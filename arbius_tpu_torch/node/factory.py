@@ -1,20 +1,37 @@
-"""Build the port's anythingv3 registry entry.
+"""Registry factory — MiningConfig → live ModelRegistry, for the port.
 
-Twin of the SD-1.5 part of arbius_tpu/node/factory.py. Weights come from
-the caller (e.g. the bridge's `params_from_jax`) or from the pipeline's
-seeded random init (same FLOPs, no weights download).
+Twin of the anythingv3 part of arbius_tpu/node/factory.py. Weights come
+from the caller (e.g. the bridge's `params_from_jax`) or from the
+pipeline's seeded random init (same FLOPs, no weights download). The
+other families, checkpoints and the CLIP BPE tokenizer are not ported
+yet: a config that names one raises `ConfigError` naming the ROADMAP.md
+queue 1 item that ports it.
 """
 from __future__ import annotations
+
+import logging
 
 import torch
 
 from arbius_tpu_torch.models.sd15 import ByteTokenizer, SD15Config, SD15Pipeline
-from arbius_tpu_torch.node.solver import RegisteredModel, SD15Runner
+from arbius_tpu_torch.node.config import ConfigError, MiningConfig, ModelConfig
+from arbius_tpu_torch.node.solver import (
+    ModelRegistry,
+    RegisteredModel,
+    SD15Runner,
+)
 from arbius_tpu_torch.templates.engine import load_template
+
+log = logging.getLogger("arbius.factory")
 
 # the anythingv3 model id of MiningConfig.example.json
 ANYTHINGV3_MODEL_ID = ("0x98617a8cd4a11db63100ad44bea4e5e296aecfd78b2ef06a"
                        "ee3e364c7307f212")
+
+# templates of the reference that wait for a later slice, by ROADMAP.md
+# queue 1 item
+_QUEUED = {"kandinsky2": 7, "textgen": 8, "zeroscopev2xl": 9, "damo": 9,
+           "robust_video_matting": 10}
 
 
 def tiny_byte_tokenizer(text_cfg) -> ByteTokenizer:
@@ -23,17 +40,78 @@ def tiny_byte_tokenizer(text_cfg) -> ByteTokenizer:
                          eos_id=258)
 
 
+def _sd15_runner(*, tiny: bool, device, params, seed: int,
+                 weights_dtype: str = "float32") -> SD15Runner:
+    """SD-1.5 on `device` with `params`, else seeded random weights.
+    weights_dtype "bfloat16" rounds every floating parameter to bf16 once
+    (the reference casts its whole tree); linear and conv weights are
+    stored in the compute dtype either way."""
+    cfg = SD15Config.tiny() if tiny else SD15Config()
+    pipe = SD15Pipeline(cfg, tokenizer=tiny_byte_tokenizer(cfg.text)
+                        if tiny else None, device=device)
+    state = params if params is not None else pipe.init_params(seed)
+    if weights_dtype == "bfloat16":
+        state = {k: v.to(torch.bfloat16).to(v.dtype)
+                 if v.is_floating_point() else v for k, v in state.items()}
+    pipe.load_params(state)
+    return SD15Runner(pipe)
+
+
 def build_anythingv3(tiny: bool = False,
                      device: str | torch.device = "cuda",
                      params: dict[str, torch.Tensor] | None = None,
                      seed: int = 0) -> RegisteredModel:
     """anythingv3 on `device`: the full SD-1.5 config (or the tiny test
     config), with `params` if given, else seeded random weights."""
-    cfg = SD15Config.tiny() if tiny else SD15Config()
-    pipe = SD15Pipeline(cfg, tokenizer=tiny_byte_tokenizer(cfg.text)
-                        if tiny else None, device=device)
-    pipe.load_params(params if params is not None
-                     else pipe.init_params(seed))
     return RegisteredModel(id=ANYTHINGV3_MODEL_ID,
                            template=load_template("anythingv3"),
-                           runner=SD15Runner(pipe))
+                           runner=_sd15_runner(tiny=tiny, device=device,
+                                               params=params, seed=seed))
+
+
+def _check_ported(m: ModelConfig, mode: str) -> None:
+    if m.template in _QUEUED:
+        raise ConfigError(
+            f"model {m.id}: template {m.template!r} is not ported yet "
+            f"(ROADMAP queue 1 item {_QUEUED[m.template]})")
+    if mode != "bf16":
+        raise ConfigError(f"model {m.id}: precision mode {mode!r} is not "
+                          "ported yet (ROADMAP queue 1 item 6)")
+    if m.checkpoint:
+        raise ConfigError(f"model {m.id}: checkpoints are not ported yet; "
+                          "weights come from `params` or the seeded init "
+                          "(ROADMAP queue 1 item 3)")
+    if m.tokenizer != "byte":
+        raise ConfigError(f"model {m.id}: tokenizer {m.tokenizer!r} is not "
+                          "ported yet (ROADMAP queue 1 item 3)")
+
+
+def build_registry(cfg: MiningConfig, device: str | torch.device = "cuda",
+                   params: dict[str, torch.Tensor] | None = None
+                   ) -> ModelRegistry:
+    """Construct runners for every enabled model in the config, on
+    `device`, with `params` (a state dict from the bridge) or the seeded
+    random init (seed 0, as the reference's factory)."""
+    reg = ModelRegistry()
+    for m in cfg.models:
+        if not m.enabled:
+            continue
+        if m.template != "anythingv3" and m.template not in _QUEUED:
+            log.warning("model %s: unknown template %r; skipping",
+                        m.id, m.template)
+            continue
+        _check_ported(m, cfg.precision.mode_for(m.template))
+        if params is None:
+            log.warning("model %s: no params given, using random init",
+                        m.id)
+        runner = _sd15_runner(tiny=m.tiny, device=device, params=params,
+                              seed=0, weights_dtype=m.weights_dtype)
+        golden = None
+        if m.golden is not None:
+            golden = (dict(m.golden["input"]), int(m.golden["seed"]),
+                      str(m.golden["cid"]))
+        reg.register(RegisteredModel(
+            id=m.id, template=load_template(m.template), runner=runner,
+            min_fee=m.min_fee, allowed_owners=list(m.allowed_owners),
+            golden=golden))
+    return reg

@@ -1,0 +1,173 @@
+"""costsched — profit-aware continuous packing of the pending solve queue.
+
+The solve path used to drain solve jobs in arrival order: buckets formed
+in first-seen order, dispatched FIFO. That is fine for one family and a
+trickle, but under a mixed-family flood it is money left on the chip —
+the staged pipeline and the mesh made dispatch order a free variable
+(per-task bytes depend
+only on (input, seed), pinned by the pipeline/mesh byte-equality
+suites), and the Gemma-on-TPU serving comparison (PAPERS.md) shows
+warm-executable reuse and bucket-shape choice dominate utilization.
+
+`CostSched` is the packer: each tick it scores every pending bucket by
+**predicted fee per chip-second** — fees from the task cache, chip
+seconds from the learned `CostModel` (node/costmodel.py), static prior
+until a key has accrued samples — boosts buckets whose executable is
+already warm (compiled this life; the jit-cache metrics in
+docs/observability.md are the fleet-visible counterpart), and emits the
+buckets in descending score. `FifoSched` is the disabled default: the
+exact arrival order the node always had.
+
+Determinism (docs/scheduler.md has the full argument): the packer
+permutes WHOLE buckets only. Within a bucket, entries stay in arrival
+order and `solver.chunk_items` chunks them identically under either
+policy, so every task's padded chunk — and therefore its bytes and CID
+— is invariant under any packing order. tests/test_sched.py pins
+costsched-on against FIFO at canonical_batch 1 and 4 for image- and
+video-shaped fakes, and the simnet `sched-flood` scenario holds
+SIM101-109 with the scheduler reordering a mixed-family flood.
+
+Copy of arbius_tpu/node/sched.py; only this docstring differs.
+"""
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+
+from arbius_tpu_torch.node.costmodel import bucket_str
+
+log = logging.getLogger("arbius.sched")
+
+# the sequence-bucket total (prompt edge + decode edge) at which a cold
+# text bucket's static prior equals the plain static estimate — the
+# scale anchor for the token-linear cold-start heuristic in
+# CostSched._predict (docs/scheduler.md, docs/text-serving.md)
+_SEQ_BASELINE_TOKENS = 64
+
+
+@dataclass
+class PackedBucket:
+    """One scored bucket in pack order (also the /debug snapshot row)."""
+    key: tuple
+    entries: list
+    fee_sum: int
+    predicted_seconds: float
+    source: str            # "cost_model" | "static"
+    warm: bool
+    score: float
+
+    def to_json(self) -> dict:
+        return {"model": self.key[0], "bucket": bucket_str(self.key),
+                "tasks": len(self.entries), "fee_sum": str(self.fee_sum),
+                "predicted_seconds": round(self.predicted_seconds, 6),
+                "source": self.source, "warm": self.warm,
+                "score": round(self.score, 6)}
+
+
+class FifoSched:
+    """The shipped default: arrival order, no scoring. Shares the
+    packer surface so the node's solve path has exactly one shape."""
+
+    policy = "fifo"
+    # FIFO never reads fee_sum — the node skips the per-task fee
+    # lookups (one sqlite SELECT each) on the hot path when False
+    wants_fees = False
+
+    def pack(self, buckets: list) -> list:
+        return [PackedBucket(key=key, entries=entries, fee_sum=fee_sum,
+                             predicted_seconds=0.0, source="fifo",
+                             warm=False, score=0.0)
+                for key, entries, fee_sum in buckets]
+
+    def mark_warm(self, key: tuple) -> None:
+        pass
+
+    def snapshot(self) -> dict:
+        return {"policy": self.policy}
+
+
+class CostSched(FifoSched):
+    """Profit-aware packer over the learned cost model."""
+
+    policy = "costsched"
+    wants_fees = True
+
+    def __init__(self, node, cfg):
+        self.node = node
+        self.cfg = cfg
+        # bucket keys whose executable compiled this life. With an AOT
+        # cache installed (docs/compile-cache.md) warmth is additionally
+        # CROSS-life: `node.bucket_disk_warm` consults the boot-scanned
+        # disk-warm tag set, so a freshly booted worker already prefers
+        # buckets it can deserialize in milliseconds over ones it would
+        # have to compile (the arbius_jit_cache_* tier counters expose
+        # the same signal fleet-wide)
+        self._warm: set[tuple] = set()
+        self._last: list[PackedBucket] = []
+
+    def mark_warm(self, key: tuple) -> None:
+        self._warm.add(key)
+
+    def _predict(self, key: tuple, n_tasks: int) -> tuple[float, str]:
+        """Predicted chip-seconds for the whole bucket + the estimate's
+        provenance. Falls back to the node's static estimate — the same
+        one the profitability gate degrades to — for cold keys. The
+        static p50 is of whole-BUCKET dispatch walls (stage=infer is
+        observed once per bucket), so it is already a bucket cost:
+        multiplying it by n_tasks would double-scale cold buckets
+        against learned ones whenever history ran multi-task buckets.
+        The bucket key carries its precision mode (solver.bucket_key),
+        so an int8 bucket prices from int8 rows only."""
+        from arbius_tpu_torch.node.solver import bucket_mode
+
+        per_task = self.node.costmodel.predict(
+            key[0], bucket_str(key), self.node.solve_layout,
+            bucket_mode(key))
+        if per_task is not None:
+            return per_task * n_tasks, "cost_model"
+        static = self.node._static_solve_seconds()
+        if len(key) > 7 and key[7] is not None and key[8] is not None:
+            # sequence-bucketed family, cold key (docs/text-serving.md):
+            # decode cost is near-linear in total tokens (prompt edge +
+            # decode edge), so scale the static prior by the bucket's
+            # token count relative to a mid-sized reference bucket —
+            # cold-start packing then prefers short sequences at equal
+            # fees instead of pricing a 96-token bucket like a 20-token
+            # one. Ordering-only: the estimate never touches bytes.
+            tokens = int(key[7]) + int(key[8])
+            return static * tokens / _SEQ_BASELINE_TOKENS, "static_seq"
+        return static, "static"
+
+    def pack(self, buckets: list) -> list:
+        """Order `[(key, entries, fee_sum)]` by descending predicted
+        fee/chip-second, warm-boosted; FIFO index breaks ties (stable
+        sort), so equal-scored buckets keep arrival order."""
+        scored: list[PackedBucket] = []
+        for key, entries, fee_sum in buckets:
+            seconds, source = self._predict(key, len(entries))
+            warm = key in self._warm \
+                or self.node.bucket_disk_warm(key, entries)
+            score = float(fee_sum) / max(seconds, 1e-9)
+            if warm:
+                score *= self.cfg.warm_boost
+            scored.append(PackedBucket(
+                key=key, entries=entries, fee_sum=fee_sum,
+                predicted_seconds=seconds, source=source, warm=warm,
+                score=score))
+        order = sorted(range(len(scored)),
+                       key=lambda i: (-scored[i].score, i))
+        packed = [scored[i] for i in order]
+        self._last = packed
+        if len(packed) > 1 and order != list(range(len(scored))):
+            self.node.obs.event(
+                "sched_pack",
+                order=[b.to_json() for b in packed])
+        return packed
+
+    def snapshot(self) -> dict:
+        return {
+            "policy": self.policy,
+            "warm_boost": self.cfg.warm_boost,
+            "warm": sorted(f"{k[0]}|{bucket_str(k)}" for k in self._warm),
+            "last_pack": [b.to_json() for b in self._last],
+        }

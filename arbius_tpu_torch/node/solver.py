@@ -1,10 +1,11 @@
-"""Model registry entry + the deterministic solve path (inference -> bytes
--> CID), for the port's runners.
+"""Model registry + the deterministic solve path (inference -> bytes ->
+CID), for the port's runners.
 
 Twin of the SD-1.5 half of arbius_tpu/node/solver.py: `RegisteredModel`,
-`chunk_items`, `solve_files_batch` (canonical-batch padding and the
-one-deep dispatch/finalize overlap), `solve_cid_batch`, and `SD15Runner`.
-The reference's observability spans are left out for now.
+`ModelRegistry`, `bucket_key`/`bucket_mode`, `chunk_items`,
+`solve_files_batch` (canonical-batch padding and the one-deep
+dispatch/finalize overlap), `solve_cid`/`solve_cid_batch` (with
+`evilmode`), and `SD15Runner`, under the reference's obs spans.
 
 Runners must be deterministic in (input, seed): the CID is what gets
 keccak'd into the on-chain commitment. cuBLAS and cuDNN choose kernels by
@@ -21,6 +22,7 @@ import torch
 
 from arbius_tpu_torch.codecs import encode_png
 from arbius_tpu_torch.l0.cid import cid_hex, cid_of_solution_files
+from arbius_tpu_torch.obs import span
 from arbius_tpu_torch.templates.engine import Template
 
 Runner = Callable[[dict, int], dict]
@@ -31,6 +33,50 @@ class RegisteredModel:
     id: str                       # 0x hash
     template: Template
     runner: Runner
+    min_fee: int = 0
+    allowed_owners: tuple[str, ...] = ()
+    golden: tuple[dict, int, str] | None = None  # (input, seed, cid_hex)
+
+
+class ModelRegistry:
+    def __init__(self):
+        self._models: dict[str, RegisteredModel] = {}
+
+    def register(self, model: RegisteredModel) -> None:
+        self._models[model.id.lower()] = model
+
+    def get(self, model_id: str) -> RegisteredModel | None:
+        return self._models.get(model_id.lower())
+
+    def ids(self) -> list[str]:
+        return list(self._models)
+
+
+def bucket_key(model_id: str, hydrated: dict, mode: str = "bf16") -> tuple:
+    """The shape-bucket identity of one task: every field that is part
+    of the bucket program (w/h/steps/scheduler, and num_frames for video
+    templates; image templates carry None there), plus the precision
+    mode. Tasks sharing a key run as one batched dispatch; the key is
+    also the cost model's bucket feature and the packer's unit of
+    reordering (node/sched.py). Text templates fill the scheduler slot
+    with their `sampler` and extend the key with `_prompt_bucket` and
+    `_decode_bucket` (a 9-tuple); every other task gives the 7-tuple."""
+    sched = hydrated.get("scheduler")
+    if sched is None:
+        sched = hydrated.get("sampler")
+    key = (model_id, hydrated.get("width"), hydrated.get("height"),
+           hydrated.get("num_inference_steps"), sched,
+           hydrated.get("num_frames"), mode)
+    pb = hydrated.get("_prompt_bucket")
+    db = hydrated.get("_decode_bucket")
+    if pb is None and db is None:
+        return key
+    return key + (pb, db)
+
+
+def bucket_mode(key: tuple) -> str:
+    """The precision mode a bucket key carries (6-tuples read as bf16)."""
+    return key[6] if len(key) > 6 else "bf16"
 
 
 def _check_declared(model: RegisteredModel, files: dict) -> dict:
@@ -65,6 +111,13 @@ def solve_files_batch(model: RegisteredModel, items: list[tuple[dict, int]],
     """Batched inference over one shape bucket, always at the canonical
     batch size (runners without `run_batch` are the canonical_batch=1
     case by construction)."""
+    with span("solve.infer", n=len(items), batch=canonical_batch):
+        return _solve_files_batch(model, items,
+                                  canonical_batch=canonical_batch)
+
+
+def _solve_files_batch(model: RegisteredModel, items: list[tuple[dict, int]],
+                       *, canonical_batch: int = 1) -> list[dict]:
     run_batch = getattr(model.runner, "run_batch", None)
     if run_batch is None or canonical_batch <= 1:
         return [solve_files(model, h, s) for h, s in items]
@@ -92,13 +145,33 @@ def solve_files_batch(model: RegisteredModel, items: list[tuple[dict, int]],
     return out
 
 
+EVIL_CID = ("0x1220000000000000000000000000000000000000000000000000000000000"
+            "0000666")
+
+
+def solve_cid(model: RegisteredModel, hydrated: dict, seed: int,
+              *, evilmode: bool = False) -> tuple[str, dict]:
+    """The commitment-bound CID for a task: dir-wrapped root of the output
+    files. evilmode emits a deliberately wrong CID for contestation
+    drills."""
+    if evilmode:
+        return EVIL_CID, {}
+    files = solve_files(model, hydrated, seed)
+    with span("solve.cid", n=1):
+        return cid_hex(cid_of_solution_files(files)), files
+
+
 def solve_cid_batch(model: RegisteredModel, items: list[tuple[dict, int]],
-                    *, canonical_batch: int = 1) -> list[tuple[str, dict]]:
+                    *, evilmode: bool = False,
+                    canonical_batch: int = 1) -> list[tuple[str, dict]]:
     """Batched solve -> (cid hex, files) per item, over one shape bucket."""
+    if evilmode:
+        return [(EVIL_CID, {})] * len(items)
     files_list = solve_files_batch(model, items,
                                    canonical_batch=canonical_batch)
-    return [(cid_hex(cid_of_solution_files(files)), files)
-            for files in files_list]
+    with span("solve.cid", n=len(files_list)):
+        return [(cid_hex(cid_of_solution_files(files)), files)
+                for files in files_list]
 
 
 class SD15Runner:
@@ -154,9 +227,11 @@ class SD15Runner:
         images, done = dispatched
         if done is not None:
             done.synchronize()
-        images = images.numpy()
-        return [{self.out_name: encode_png(np.ascontiguousarray(images[i]))}
-                for i in range(n_real)]
+        with span("solve.encode", n=n_real, codec="png"):
+            images = images.numpy()
+            return [{self.out_name:
+                     encode_png(np.ascontiguousarray(images[i]))}
+                    for i in range(n_real)]
 
     def cache_tag(self, hydrated: dict, batch: int) -> str:
         """The bucket tag a dispatch of this task would use; defaults

@@ -1,0 +1,278 @@
+"""arbius_tpu_torch.obs — tracing, metrics registry, and event journal.
+
+The miner's observability subsystem (SURVEY.md §5: the reference ships
+none). Three pieces behind one facade:
+
+  - `MetricsRegistry`: counters / gauges / fixed-bucket histograms with
+    Prometheus text exposition (`ControlRPC` serves it at GET /metrics)
+    and bounded recent-sample windows for exact rolling percentiles.
+  - `Tracer`: `span(name, **attrs)` context managers with parent/child
+    nesting, wall-time + chain-time stamps, completed spans recorded
+    into the journal and `arbius_span_seconds{name}`.
+  - `EventJournal`: bounded ring buffer of span completions and
+    retry/failure events, queryable by taskid (GET /debug/trace) and
+    dumpable (`tools/obs_dump.py`).
+
+An `Obs` instance bundles the three; `MinerNode` owns one per node.
+Library code that should not know about nodes (solver, pinners, chain
+client, expretry) reports through the *ambient* obs: the node activates
+its instance around its event loop with `use_obs(...)`, and the
+module-level `span(...)` / `current_obs()` helpers are near-zero-cost
+no-ops when nothing is active — importing this package never makes an
+un-instrumented call path slower.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager, nullcontext
+from contextvars import ContextVar
+
+from arbius_tpu_torch.obs.journal import EventJournal
+from arbius_tpu_torch.obs.registry import (
+    DEFAULT_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+)
+from arbius_tpu_torch.obs.trace import Span, Tracer, task_trace
+
+
+class Obs:
+    """One node's observability bundle: registry + journal + tracer.
+
+    `enabled=False` turns off tracing and journaling (the hot-path
+    per-span cost) while the registry keeps counting — the metrics
+    surface stays truthful either way.
+    """
+
+    def __init__(self, *, journal_capacity: int = 4096, now_fn=None,
+                 enabled: bool = True):
+        self.enabled = enabled
+        self.registry = MetricsRegistry()
+        self.journal = EventJournal(journal_capacity, now_fn=now_fn)
+        self.tracer = Tracer(self.journal, registry=self.registry,
+                             now_fn=now_fn, enabled=enabled)
+        # executable-cache tags that built (compiled) under this obs —
+        # the per-process warm-set behind the arbius_jit_cache_*
+        # counters (jit_cache_get below), served on /debug/costmodel as
+        # ground truth for the packer's warm set (docs/scheduler.md).
+        # Published copy-on-write (see jit_cache_get): the RPC debug
+        # view iterates it from a request thread, and an in-place .add
+        # mid-sorted() raises RuntimeError — frozenset rebinding makes
+        # every reader see an immutable snapshot (docs/concurrency.md)
+        self.jit_warm: frozenset = frozenset()
+        # AOT executable cache (docs/compile-cache.md): the node installs
+        # its `aotcache.AotCache` here at boot so `jit_cache_get` finds
+        # the disk tier through the SAME ambient plumbing every dispatch
+        # path already rides — None = the memory-only pre-AOT behavior,
+        # bit-for-bit
+        self.aot_cache = None
+        # perfscope card table (docs/perfscope.md): installed at boot
+        # when cfg.perfscope.enabled, same ambient pattern — None =
+        # no capture, the pre-perfscope node bit-for-bit
+        self.perfscope = None
+
+    def span(self, name: str, **attrs):
+        if not self.enabled:
+            return nullcontext()
+        return self.tracer.span(name, **attrs)
+
+    def event(self, kind: str, **fields) -> None:
+        """Record a non-span journal event (retry, job failure, …)."""
+        if self.enabled:
+            self.journal.record(kind, **fields)
+
+    def task_trace(self, taskid: str) -> list[dict]:
+        return task_trace(self.journal.events(), taskid)
+
+
+_ACTIVE: ContextVar[Obs | None] = ContextVar("arbius_obs", default=None)
+_NULL_CM = nullcontext()
+
+
+@contextmanager
+def use_obs(obs: Obs | None):
+    """Make `obs` the ambient observability sink for this context (the
+    node wraps its tick loop and event handlers in this)."""
+    token = _ACTIVE.set(obs)
+    try:
+        yield obs
+    finally:
+        _ACTIVE.reset(token)
+
+
+def current_obs() -> Obs | None:
+    return _ACTIVE.get()
+
+
+def span(name: str, **attrs):
+    """Ambient span: traces into the active Obs, no-op (a shared
+    reusable nullcontext — no allocation) when none is active."""
+    obs = _ACTIVE.get()
+    if obs is None or not obs.enabled:
+        return _NULL_CM
+    return obs.tracer.span(name, **attrs)
+
+
+# -- jit-cache observability (docs/scheduler.md, docs/observability.md) -----
+#
+# Every bucket-executable cache in the tree (the model pipelines'
+# `_buckets`, the meshsolve probes' `_fns`) reports through these two
+# helpers, so warm-executable reuse — the signal the Gemma-on-TPU
+# serving comparison (PAPERS.md) shows dominates chip utilization — is
+# measurable fleet-wide and the profit scheduler's warm preference has
+# a ground-truth counter to be audited against. Ambient-obs no-ops,
+# like span(): library code stays node-free.
+
+_JIT_HITS_HELP = ("Bucket-executable cache lookups answered by an "
+                  "already-built (warm) executable, by tier — "
+                  "tier=\"memory\" is this life's dict, tier=\"disk\" "
+                  "is an AOT cache deserialize (docs/compile-cache.md)")
+_JIT_MISS_HELP = ("Bucket-executable cache lookups that had to build "
+                  "(trace + compile) a new executable")
+_COMPILE_HELP = ("Wall seconds of a bucket executable's first dispatch "
+                 "— trace + XLA build dominated (tagged per executable "
+                 "cache key in the recent window)")
+
+
+def jit_cache_get(cache: dict, key, build, tag: str | None = None,
+                  aot_args=None):
+    """Get-or-build a cached bucket executable with jit-cache obs:
+    increments `arbius_jit_cache_{hits,misses}_total` (hits carry a
+    `tier` label: "memory" for this life's dict, "disk" for an AOT
+    cache load), records `tag` into the active obs' warm set, and
+    returns `(fn, warm, tag)` — `tag` echoes the argument so dispatch
+    sites hand the SAME string to `timed_dispatch` instead of
+    rebuilding it.
+
+    Without an AOT tier, `fn` is exactly what `build()` returned
+    (graphlint traces these same callables, so nothing may wrap them)
+    and `warm=False` tells the dispatch site to time its first —
+    compile-dominated — call. The disk tier engages only when BOTH an
+    `AotCache` is installed on the active obs (`obs.aot_cache`,
+    docs/compile-cache.md) and the call site passed `aot_args` (a
+    zero-arg thunk returning the exact dispatch arguments, for tracing
+    the program's cache key): memory miss → disk load (deserialize, no
+    compile) → trace+compile and write back. Either way the returned
+    executable is ALREADY compiled, so `warm=True` — the compile/load
+    cost was recorded inside (`arbius_compile_seconds` /
+    `arbius_aot_load_seconds`) and the first dispatch has nothing left
+    to time. A `PerfScope` on the active obs (`obs.perfscope`,
+    docs/perfscope.md) rides the same `aot_args` opt-in: misses compile
+    eagerly so the card can read XLA's cost/memory analyses off the
+    compiled executable — same program, same bytes, warm=True."""
+    obs = _ACTIVE.get()
+    fn = cache.get(key)
+    if fn is not None:
+        if obs is not None:
+            obs.registry.counter("arbius_jit_cache_hits_total",
+                                 _JIT_HITS_HELP,
+                                 labelnames=("tier",)).inc(tier="memory")
+            if obs.perfscope is not None:
+                # a hit on an already-COMPILED executable (an earlier
+                # life under perfscope/AOT built it eagerly) still
+                # cards the bucket; lazy callables no-op inside
+                obs.perfscope.adopt(tag, fn)
+        return fn, True, tag
+    aot = obs.aot_cache if obs is not None else None
+    if aot is not None and aot_args is not None:
+        fn, state = aot.get_or_compile(build, aot_args, tag=tag)
+        cache[key] = fn
+        if state == "disk":
+            obs.registry.counter("arbius_jit_cache_hits_total",
+                                 _JIT_HITS_HELP,
+                                 labelnames=("tier",)).inc(tier="disk")
+        else:
+            obs.registry.counter("arbius_jit_cache_misses_total",
+                                 _JIT_MISS_HELP).inc()
+        if tag is not None:
+            # warm in every state: disk/compiled executables exist in
+            # THIS life now, and a fallback compiles at first dispatch
+            # — the same moment the pre-AOT path records warmth
+            # (copy-on-write publish — see the comment below)
+            obs.jit_warm = obs.jit_warm | {tag}
+        # "fallback" handed back the LAZY jitted callable (the cache
+        # could not even derive a key): warm=False so the dispatch site
+        # times the first call, exactly the pre-AOT contract
+        return fn, state != "fallback", tag
+    if obs is not None:
+        obs.registry.counter("arbius_jit_cache_misses_total",
+                             _JIT_MISS_HELP).inc()
+        if tag is not None:
+            # copy-on-write publish (misses are rare — one per bucket
+            # shape per life): a /debug/costmodel request thread may be
+            # iterating the current snapshot right now, and the GIL
+            # makes the rebind atomic while the old frozenset stays
+            # valid under its feet (docs/concurrency.md)
+            obs.jit_warm = obs.jit_warm | {tag}
+    scope = obs.perfscope if obs is not None else None
+    if scope is not None and aot_args is not None:
+        # perfscope capture (docs/perfscope.md): the card needs the
+        # COMPILED executable (XLA's cost/memory analyses live there),
+        # so the miss compiles eagerly — the aotcache pattern exactly:
+        # the returned executable runs the same program the lazy path
+        # would have built (same trace, XLA's deterministic lowering),
+        # warm=True because the compile was timed here. Any failure
+        # degrades to the lazy pre-perfscope path, journaled — the
+        # scope can never be why a solve fails.
+        fn = build()
+        try:
+            args = tuple(aot_args())
+            import time
+
+            # detlint: allow[DET101] obs compile timing; never reaches solve bytes
+            t0 = time.perf_counter()
+            with compile_timer(tag):
+                compiled = fn.lower(*args).compile()
+            # detlint: allow[DET101] obs compile timing; never reaches solve bytes
+            dt = time.perf_counter() - t0
+        except Exception:  # noqa: BLE001 — degrade, never fail
+            scope._skip("jit_cache_get")
+            cache[key] = fn
+            return fn, False, tag
+        scope.record_executable(tag, compiled, compile_seconds=dt)
+        cache[key] = compiled
+        return compiled, True, tag
+    fn = cache[key] = build()
+    return fn, False, tag
+
+
+def timed_dispatch(warm: bool, tag: str | None = None):
+    """The one cold/warm dispatch idiom every bucket-executable call
+    site shares: a no-op context when the executable is warm, else
+    `compile_timer(tag)` around the first (compile-dominated) call."""
+    if warm:
+        return nullcontext()
+    return compile_timer(tag)
+
+
+@contextmanager
+def compile_timer(tag: str | None = None):
+    """Time a cold bucket executable's FIRST dispatch into
+    `arbius_compile_seconds` (jit compile is synchronous inside that
+    call; execution is async-dispatched, so the wall window is
+    trace+build dominated). Call sites wrap only the cold call —
+    `jit_cache_get`'s `warm` flag says which one that is."""
+    obs = _ACTIVE.get()
+    if obs is None:
+        yield
+        return
+    import time
+
+    # detlint: allow[DET101] obs compile timing; never reaches solve bytes
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        obs.registry.histogram(
+            "arbius_compile_seconds", _COMPILE_HELP).observe(
+            # detlint: allow[DET101] obs compile timing; never reaches solve bytes
+            time.perf_counter() - t0, tag=tag)
+
+
+__all__ = [
+    "DEFAULT_BUCKETS", "Counter", "EventJournal", "Gauge", "Histogram",
+    "MetricsRegistry", "Obs", "Span", "Tracer", "compile_timer",
+    "current_obs", "jit_cache_get", "span", "task_trace",
+    "timed_dispatch", "use_obs",
+]

@@ -1,0 +1,599 @@
+"""Metrics registry — counters, gauges, fixed-bucket histograms.
+
+One process-local registry backs every surface that reports numbers:
+the node's `NodeMetrics` view, the JSON `/api/metrics` endpoint, the
+Prometheus `GET /metrics` exposition, and bench.py's per-stage BENCH
+snapshots. The reference miner has no metrics at all (SURVEY.md §5);
+the shape here follows the Prometheus client-library data model —
+monotonic counters, settable gauges (optionally collect-time callbacks),
+and histograms with fixed cumulative buckets — because that is what a
+learned performance model ("A Learned Performance Model for TPUs",
+PAPERS.md) and any fleet dashboard both consume.
+
+Histograms additionally keep a bounded window of recent raw samples
+(optionally tagged, e.g. with a taskid) so exact rolling percentiles —
+what the pre-obs `NodeMetrics` deques provided — derive from the same
+instrument instead of a parallel data structure.
+"""
+from __future__ import annotations
+
+import math
+import threading
+from bisect import bisect_left
+from collections import deque
+
+# -- centralized bucket-edge sets (docs/fleetscope.md) ----------------------
+#
+# Histograms that must MERGE across fleet processes (metrics federation)
+# must share bucket edges exactly — `merge_bucket_counts` refuses a
+# mismatch instead of silently producing garbage percentiles — so the
+# edge sets are named HERE, never improvised per call site.
+
+# latency-shaped default: sub-ms RPC spans up to multi-minute video solves
+DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                   1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
+
+# graphlint spec-trace wall time (re-exported by analysis.graph.trace)
+TRACE_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0)
+
+# chain-time latency corpus (integer chain seconds): queue-wait,
+# time-to-commit, steal lag — the SLO substrate (docs/fleetscope.md)
+CHAIN_SECONDS_BUCKETS = (1.0, 2.0, 5.0, 10.0, 20.0, 30.0, 60.0, 120.0,
+                         300.0, 600.0, 1200.0, 1800.0, 3600.0)
+
+BUCKET_EDGES = {
+    "latency": DEFAULT_BUCKETS,
+    "trace": TRACE_BUCKETS,
+    "chain_seconds": CHAIN_SECONDS_BUCKETS,
+}
+
+
+def estimate_percentile(edges, counts, q: float) -> float | None:
+    """Percentile estimate from fixed-bucket counts (Prometheus
+    histogram_quantile semantics): linear interpolation inside the
+    bucket holding the target rank; the open +Inf bucket clamps to the
+    top finite edge; None when empty. This estimator — not the exact
+    recent-window `percentile()` — is the federation-safe one: bucket
+    counts merge losslessly across processes while bounded raw-sample
+    windows do not (docs/fleetscope.md)."""
+    edges = tuple(float(e) for e in edges)
+    counts = list(counts)
+    if len(counts) != len(edges) + 1:
+        raise ValueError(
+            f"counts length {len(counts)} != {len(edges)} edges + the "
+            "+Inf bucket — not a fixed-bucket count array")
+    total = sum(counts)
+    if total <= 0:
+        return None
+    q = min(max(float(q), 0.0), 1.0)
+    rank = q * total
+    cum = 0
+    for i, n in enumerate(counts):
+        if n > 0 and cum + n >= rank:
+            if i >= len(edges):
+                return edges[-1]  # open bucket: clamp to top finite edge
+            lo = edges[i - 1] if i > 0 else 0.0
+            return lo + (edges[i] - lo) * max(0.0, (rank - cum) / n)
+        cum += n
+    return edges[-1]
+
+
+def merge_bucket_counts(edges_a, counts_a, edges_b, counts_b) -> list:
+    """Elementwise-merge two fixed-bucket count arrays. REJECTS
+    mismatched edge sets: interpolating percentiles over silently
+    re-binned counts is exactly the garbage this error prevents."""
+    ta = tuple(float(e) for e in edges_a)
+    tb = tuple(float(e) for e in edges_b)
+    if ta != tb:
+        raise ValueError(
+            "refusing to merge histograms with mismatched bucket edges "
+            f"({len(ta)} edges vs {len(tb)}: {ta[:3]}… vs {tb[:3]}…) — "
+            "use one of the named sets in obs.registry.BUCKET_EDGES")
+    if len(counts_a) != len(counts_b):
+        raise ValueError("bucket count arrays differ in length")
+    return [a + b for a, b in zip(counts_a, counts_b)]
+
+
+def _fmt_value(v: float) -> str:
+    if v != v:  # NaN
+        return "NaN"
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    if float(v).is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _escape_label(v) -> str:
+    return str(v).replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
+
+
+def _label_str(labelnames: tuple, key: tuple) -> str:
+    if not labelnames:
+        return ""
+    inner = ",".join(f'{n}="{_escape_label(v)}"'
+                     for n, v in zip(labelnames, key))
+    return "{" + inner + "}"
+
+
+class _Metric:
+    """Shared label-children plumbing. `key` is the tuple of label values
+    in `labelnames` order; the unlabeled metric uses the empty tuple."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str, labelnames: tuple = ()):
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+        self._children: dict[tuple, object] = {}
+
+    def _key(self, labels: dict) -> tuple:
+        if set(labels) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name}: labels {sorted(labels)} != declared "
+                f"{sorted(self.labelnames)}")
+        return tuple(labels[n] for n in self.labelnames)
+
+    def _child(self, labels: dict):
+        key = self._key(labels)
+        with self._lock:
+            c = self._children.get(key)
+            if c is None:
+                c = self._children[key] = self._new_child()
+            return c
+
+    def _peek(self, labels: dict):
+        """Read-only child lookup: never materializes a labeled series
+        (a scrape or percentile query must not create empty series)."""
+        key = self._key(labels)
+        with self._lock:
+            return self._children.get(key)
+
+    def _items(self) -> list[tuple[tuple, object]]:
+        with self._lock:
+            return sorted(self._children.items())
+
+    def _export_base(self) -> dict:
+        return {"kind": self.kind, "help": self.help,
+                "labelnames": list(self.labelnames)}
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def _new_child(self):
+        return [0.0]
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        if amount < 0:
+            raise ValueError(f"{self.name}: counters only go up "
+                             f"(inc {amount})")
+        c = self._child(labels)
+        with self._lock:
+            c[0] += amount
+
+    def value(self, **labels) -> float:
+        c = self._peek(labels)
+        return c[0] if c is not None else 0.0
+
+    def render(self) -> list[str]:
+        lines = [f"{self.name}{_label_str(self.labelnames, key)} "
+                 f"{_fmt_value(c[0])}" for key, c in self._items()]
+        if not lines and not self.labelnames:
+            lines = [f"{self.name} 0"]
+        return lines
+
+    def summary(self):
+        if not self.labelnames:
+            return self.value()
+        return {",".join(f"{n}={v}" for n, v in zip(self.labelnames, key)):
+                c[0] for key, c in self._items()}
+
+    def export(self) -> dict:
+        """JSON-able snapshot for the fleetscope sidecar/federation
+        (docs/fleetscope.md): series as sorted [labelvalues, value]."""
+        return dict(self._export_base(),
+                    series=[[list(key), c[0]]
+                            for key, c in self._items()])
+
+
+class Gauge(_Metric):
+    """Settable gauge; `fn` is read at collect time — the queue-depth
+    pattern, where the source of truth is elsewhere. A LABELED callback
+    gauge's `fn` returns a mapping of label value (or label-value
+    tuple, for multi-label gauges) to number — the fleet lease-state
+    pattern, where one scrape of the source yields every series
+    (docs/fleet.md, docs/observability.md)."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, help: str, labelnames: tuple = (),
+                 fn=None):
+        super().__init__(name, help, labelnames)
+        self.fn = fn
+
+    def _new_child(self):
+        return [0.0]
+
+    def set(self, value: float, **labels) -> None:
+        c = self._child(labels)
+        with self._lock:
+            c[0] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        c = self._child(labels)
+        with self._lock:
+            c[0] += amount
+
+    def dec(self, amount: float = 1.0, **labels) -> None:
+        self.inc(-amount, **labels)
+
+    def _call_fn(self) -> float:
+        try:
+            return float(self.fn())
+        except Exception:  # noqa: BLE001 — a dead source (e.g. a closed
+            # sqlite handle behind queue_depth) must not take down the
+            # whole /metrics scrape
+            return float("nan")
+
+    def _fn_items(self) -> list[tuple[tuple, float]] | None:
+        """Labeled-callback collect: normalize the mapping's keys to
+        label-value tuples, sorted for stable exposition. None marks a
+        DEAD source (fn raised) — distinct from an empty mapping, which
+        is a legitimately empty series set."""
+        try:
+            raw = self.fn()
+            out = []
+            for key, v in raw.items():
+                if not isinstance(key, tuple):
+                    key = (key,)
+                out.append((tuple(str(k) for k in key), float(v)))
+            return sorted(out)
+        except Exception:  # noqa: BLE001 — same dead-source contract
+            return None
+
+    def value(self, **labels) -> float:
+        if self.fn is not None:
+            if not self.labelnames:
+                return self._call_fn()
+            key = self._key(labels)
+            items = self._fn_items()
+            if items is None:
+                return float("nan")
+            for k, v in items:
+                if k == key:
+                    return v
+            return 0.0
+        c = self._peek(labels)
+        return c[0] if c is not None else 0.0
+
+    def render(self) -> list[str]:
+        if self.fn is not None:
+            if not self.labelnames:
+                return [f"{self.name} {_fmt_value(self._call_fn())}"]
+            items = self._fn_items()
+            if items is None:
+                # a scrape must see that the source died, not an empty
+                # (= "all drained") series set — mirror the unlabeled
+                # dead-source NaN on the bare name
+                return [f"{self.name} NaN"]
+            return [f"{self.name}{_label_str(self.labelnames, key)} "
+                    f"{_fmt_value(v)}" for key, v in items]
+        lines = [f"{self.name}{_label_str(self.labelnames, key)} "
+                 f"{_fmt_value(c[0])}" for key, c in self._items()]
+        if not lines and not self.labelnames:
+            lines = [f"{self.name} 0"]
+        return lines
+
+    def summary(self):
+        if self.fn is not None and self.labelnames:
+            items = self._fn_items()
+            if items is None:
+                return float("nan")
+            return {",".join(f"{n}={v}" for n, v
+                             in zip(self.labelnames, key)): v
+                    for key, v in items}
+        if self.fn is not None or not self.labelnames:
+            return self.value()
+        return {",".join(f"{n}={v}" for n, v in zip(self.labelnames, key)):
+                c[0] for key, c in self._items()}
+
+    def export(self) -> dict:
+        """Callback gauges are EVALUATED at export time (the sidecar
+        snapshot is a scrape); a dead labeled source exports
+        `dead: true` so the federated view renders the same bare
+        `name NaN` a local scrape would — federation must surface a
+        dead member's source, not silently drop its series."""
+        out = self._export_base()
+        if self.fn is not None:
+            if not self.labelnames:
+                out["series"] = [[[], self._call_fn()]]
+                return out
+            items = self._fn_items()
+            if items is None:
+                out["series"] = []
+                out["dead"] = True
+                return out
+            out["series"] = [[list(key), v] for key, v in items]
+            return out
+        out["series"] = [[list(key), c[0]] for key, c in self._items()]
+        return out
+
+
+class _HistChild:
+    __slots__ = ("counts", "sum", "count", "recent")
+
+    def __init__(self, n_buckets: int, window: int):
+        self.counts = [0] * (n_buckets + 1)  # +1: the +Inf bucket
+        self.sum = 0.0
+        self.count = 0
+        self.recent: deque = deque(maxlen=window)  # (tag, value)
+
+
+class Histogram(_Metric):
+    """Fixed-bucket histogram plus a bounded recent-sample window.
+
+    Buckets are upper edges (cumulative at render, per the Prometheus
+    text format). `observe(v, tag=...)` keeps (tag, value) in the recent
+    window so `percentile()` / `recent()` answer the exact rolling-window
+    questions the JSON metrics view asks (p50/p95 over recent solves)
+    without a second data structure.
+    """
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str,
+                 buckets: tuple = DEFAULT_BUCKETS, labelnames: tuple = (),
+                 recent_window: int = 1000):
+        super().__init__(name, help, labelnames)
+        b = tuple(sorted(float(x) for x in buckets))
+        if not b:
+            raise ValueError(f"{name}: histogram needs at least one bucket")
+        self.buckets = b
+        self.recent_window = int(recent_window)
+
+    def _new_child(self):
+        return _HistChild(len(self.buckets), self.recent_window)
+
+    def observe(self, value: float, tag=None, **labels) -> None:
+        c = self._child(labels)
+        i = bisect_left(self.buckets, value)
+        with self._lock:
+            c.counts[i] += 1
+            c.sum += value
+            c.count += 1
+            c.recent.append((tag, value))
+
+    def values(self, **labels) -> list[float]:
+        c = self._peek(labels)
+        if c is None:
+            return []
+        with self._lock:
+            return [v for _, v in c.recent]
+
+    def recent(self, **labels) -> list[tuple]:
+        c = self._peek(labels)
+        if c is None:
+            return []
+        with self._lock:
+            return list(c.recent)
+
+    def count(self, **labels) -> int:
+        c = self._peek(labels)
+        return c.count if c is not None else 0
+
+    def bucket_counts(self, **labels) -> list[int]:
+        """Per-bucket (non-cumulative) counts incl. the +Inf bucket —
+        the mergeable form the federation layer ships between
+        processes (docs/fleetscope.md)."""
+        c = self._peek(labels)
+        if c is None:
+            return [0] * (len(self.buckets) + 1)
+        with self._lock:
+            return list(c.counts)
+
+    def estimate_percentile(self, q: float, **labels) -> float | None:
+        """Bucket-estimated percentile (module-level
+        `estimate_percentile` over this histogram's fixed edges):
+        unlike `percentile()` it never truncates to the recent window,
+        so it stays truthful at soak scale and federates across
+        processes."""
+        return estimate_percentile(self.buckets,
+                                   self.bucket_counts(**labels), q)
+
+    def export(self) -> dict:
+        out = self._export_base()
+        out["buckets"] = [float(b) for b in self.buckets]
+        series = []
+        for key, c in self._items():
+            with self._lock:
+                series.append([list(key), list(c.counts), c.sum, c.count])
+        out["series"] = series
+        return out
+
+    def percentile(self, q: float, **labels) -> float | None:
+        """Exact percentile over the recent window (numpy 'linear'
+        interpolation semantics), None when no samples yet."""
+        vals = sorted(self.values(**labels))
+        if not vals:
+            return None
+        if len(vals) == 1:
+            return float(vals[0])
+        pos = q * (len(vals) - 1)
+        lo = int(pos)
+        frac = pos - lo
+        if lo + 1 >= len(vals):
+            return float(vals[-1])
+        return float(vals[lo] + (vals[lo + 1] - vals[lo]) * frac)
+
+    def render(self) -> list[str]:
+        lines = []
+        for key, c in self._items():
+            cum = 0
+            for edge, n in zip(self.buckets, c.counts):
+                cum += n
+                labels = _label_str(
+                    self.labelnames + ("le",), key + (_fmt_value(edge),))
+                lines.append(f"{self.name}_bucket{labels} {cum}")
+            labels = _label_str(self.labelnames + ("le",), key + ("+Inf",))
+            lines.append(f"{self.name}_bucket{labels} {c.count}")
+            base = _label_str(self.labelnames, key)
+            lines.append(f"{self.name}_sum{base} {_fmt_value(c.sum)}")
+            lines.append(f"{self.name}_count{base} {c.count}")
+        return lines
+
+    def summary(self):
+        out = {}
+        for key, c in self._items():
+            k = ",".join(f"{n}={v}" for n, v in zip(self.labelnames, key))
+            labels = dict(zip(self.labelnames, key))
+            out[k] = {
+                "count": c.count,
+                "sum": round(c.sum, 6),
+                "p50": self.percentile(0.5, **labels),
+                "p95": self.percentile(0.95, **labels),
+            }
+        if not self.labelnames:
+            return out.get("", {"count": 0, "sum": 0.0,
+                                "p50": None, "p95": None})
+        return out
+
+
+class MetricsRegistry:
+    """Get-or-create metric registry with Prometheus text exposition.
+
+    Re-registering a name returns the existing instrument; a kind or
+    labelnames mismatch raises — two call sites silently feeding
+    different-shaped metrics into one name is the bug this catches.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: dict[str, _Metric] = {}
+
+    def _get_or_create(self, cls, name, help, **kwargs):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                if not isinstance(m, cls) or m.labelnames != tuple(
+                        kwargs.get("labelnames", ())):
+                    raise ValueError(
+                        f"metric {name} re-registered as {cls.kind}"
+                        f"/{kwargs.get('labelnames', ())} but exists as "
+                        f"{m.kind}/{m.labelnames}")
+                if isinstance(m, Histogram) and (
+                        m.buckets != tuple(sorted(
+                            float(x) for x in kwargs["buckets"]))
+                        or m.recent_window != int(kwargs["recent_window"])):
+                    raise ValueError(
+                        f"histogram {name} re-registered with different "
+                        "buckets/recent_window — the existing layout "
+                        "would silently win")
+                return m
+            m = self._metrics[name] = cls(name, help, **kwargs)
+            return m
+
+    def counter(self, name: str, help: str = "",
+                labelnames: tuple = ()) -> Counter:
+        return self._get_or_create(Counter, name, help, labelnames=labelnames)
+
+    def gauge(self, name: str, help: str = "", labelnames: tuple = (),
+              fn=None) -> Gauge:
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                if not isinstance(m, Gauge) or m.labelnames != tuple(labelnames):
+                    raise ValueError(f"metric {name} exists with a "
+                                     "different shape")
+                if fn is not None:
+                    m.fn = fn
+                return m
+            m = self._metrics[name] = Gauge(name, help, labelnames, fn=fn)
+            return m
+
+    def histogram(self, name: str, help: str = "",
+                  buckets: tuple = DEFAULT_BUCKETS, labelnames: tuple = (),
+                  recent_window: int = 1000) -> Histogram:
+        return self._get_or_create(Histogram, name, help,
+                                   buckets=buckets, labelnames=labelnames,
+                                   recent_window=recent_window)
+
+    def get(self, name: str) -> _Metric | None:
+        with self._lock:
+            return self._metrics.get(name)
+
+    def _sorted(self) -> list[_Metric]:
+        with self._lock:
+            return [self._metrics[k] for k in sorted(self._metrics)]
+
+    def render(self) -> str:
+        """Prometheus text exposition format (0.0.4)."""
+        out = []
+        for m in self._sorted():
+            if m.help:
+                out.append(f"# HELP {m.name} {m.help}")
+            out.append(f"# TYPE {m.name} {m.kind}")
+            out.extend(m.render())
+        return "\n".join(out) + "\n"
+
+    def summary(self) -> dict:
+        """Compact JSON-able snapshot: {name: scalar | per-label dict}."""
+        return {m.name: m.summary() for m in self._sorted()}
+
+    def export(self) -> dict:
+        """Full JSON-able registry snapshot for the fleetscope sidecar:
+        every metric's kind/help/labelnames plus its raw series —
+        counters/gauges as values, histograms as bucket counts — the
+        lossless mergeable form `fleetscope.merge_exports` federates
+        (docs/fleetscope.md)."""
+        return {"version": 1,
+                "metrics": {m.name: m.export() for m in self._sorted()}}
+
+
+def render_export(export: dict) -> str:
+    """Prometheus text exposition (0.0.4) from a registry export — the
+    SAME byte format `MetricsRegistry.render()` produces, so a
+    federated scrape and a local scrape are directly diffable. Metrics
+    render sorted by name; series keep their exported (sorted) order."""
+    out = []
+    metrics = export.get("metrics", {})
+    for name in sorted(metrics):
+        m = metrics[name]
+        kind = m.get("kind", "untyped")
+        labelnames = tuple(m.get("labelnames") or ())
+        if m.get("help"):
+            out.append(f"# HELP {name} {m['help']}")
+        out.append(f"# TYPE {name} {kind}")
+        series = m.get("series") or []
+        if kind == "histogram":
+            edges = m.get("buckets") or []
+            for key, counts, total, count in series:
+                cum = 0
+                for edge, n in zip(edges, counts):
+                    cum += n
+                    labels = _label_str(labelnames + ("le",),
+                                        tuple(key) + (_fmt_value(edge),))
+                    out.append(f"{name}_bucket{labels} {cum}")
+                labels = _label_str(labelnames + ("le",),
+                                    tuple(key) + ("+Inf",))
+                out.append(f"{name}_bucket{labels} {count}")
+                base = _label_str(labelnames, tuple(key))
+                out.append(f"{name}_sum{base} {_fmt_value(total)}")
+                out.append(f"{name}_count{base} {count}")
+            continue
+        if m.get("dead"):
+            # a labeled callback gauge whose source died anywhere in
+            # the fleet: the merged scrape must say so, exactly like a
+            # local scrape would — never an empty ("all drained") set
+            out.append(f"{name} NaN")
+            continue
+        lines = [f"{name}{_label_str(labelnames, tuple(key))} "
+                 f"{_fmt_value(v)}" for key, v in series]
+        if not lines and not labelnames:
+            lines = [f"{name} 0"]
+        out.extend(lines)
+    return "\n".join(out) + "\n"

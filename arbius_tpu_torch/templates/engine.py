@@ -1,9 +1,8 @@
-"""Template parsing and input hydration: the part of the reference's
-arbius_tpu/templates/engine.py that the solve path uses (its mining
-filters stay with the node, which is not ported yet).
+"""Template parsing, input hydration, and mining filters.
 
 Behavioral parity with the reference miner's `models.ts`:
   - hydrate_input       ≡ hydrateInput   (`miner/src/models.ts:145-220`)
+  - check_model_filter  ≡ checkModelFilter (`miner/src/models.ts:100-143`)
 
 Two deliberate divergences from reference bugs, both documented here:
   1. `models.ts:194` writes ``row > col.max`` (comparing the schema row
@@ -18,7 +17,7 @@ from __future__ import annotations
 
 import json
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from importlib import resources
 from typing import Any
 
@@ -102,6 +101,10 @@ def _data_root():
     return resources.files("arbius_tpu_torch.templates") / "data"
 
 
+def template_names() -> list[str]:
+    return sorted(p.name[:-5] for p in _data_root().iterdir() if p.name.endswith(".json"))
+
+
 def load_template_bytes(name: str) -> bytes:
     return (_data_root() / f"{name}.json").read_bytes()
 
@@ -159,3 +162,49 @@ def hydrate_input(preprocessed: dict, template: Template) -> dict:
             out[row.variable] = row.default
 
     return out
+
+
+@dataclass(frozen=True)
+class MiningFilter:
+    """Operator-side task acceptance rule (`miner/src/types.ts` MiningFilter)."""
+    minfee: int = 0          # wei; task fee must be >= this
+    mintime: int = 0         # seconds the task must have aged, 0 = no wait
+    owner: str | None = None  # restrict to a task owner address
+
+
+@dataclass(frozen=True)
+class FilterResult:
+    model_enabled: bool
+    filter_passed: bool
+    template: Template | None
+
+
+def check_model_filter(
+    models: dict[str, tuple[Template, list[MiningFilter]]],
+    *,
+    model: str,
+    now: float,
+    fee: int,
+    blocktime: float,
+    owner: str,
+) -> FilterResult:
+    """≡ checkModelFilter (`miner/src/models.ts:100-143`).
+
+    Note the reference semantics, preserved here: a model with an EMPTY
+    filter list never passes — operators must configure at least one filter
+    (MiningFilter() accepts everything).
+    """
+    entry = models.get(model)
+    if entry is None:
+        return FilterResult(False, False, None)
+    template, filters = entry
+    for f in filters:
+        if f.owner and owner != f.owner:
+            continue
+        if not fee >= f.minfee:
+            continue
+        age = now - blocktime
+        if f.mintime > 0 and age < f.mintime:
+            continue
+        return FilterResult(True, True, template)
+    return FilterResult(True, False, template)

@@ -34,9 +34,22 @@ its own lines with timings:
   5. determinism: a fresh pipeline solves the same tasks chunk by chunk
      with identical CIDs and the same launches per route, and one task
      keeps its CID among different neighbours.
+  6. node: the port's miner node hosts anythingv3 at full width. The
+     boot self-test golden (512x512, 20 steps, DPMSolverMultistep, seed
+     1337, canonical batch 4, bf16 weights) is recorded with a fresh
+     model through record-golden's function and must equal the committed
+     arbius_tpu_torch/goldens/anythingv3.h100.bfloat16.json when the
+     build (card, torch, CUDA, cuDNN) is the one it was recorded on; a
+     MinerNode on an in-process chain (Engine + LocalChain) boots with
+     it, passing the self-test on the card, mines phase 4's six tasks as
+     on-chain tasks from TaskSubmitted through commit and reveal (641
+     launches per chunk, per route as in phase 4), and claims them; each
+     on-chain CID equals the fresh model's for the same hydrated input
+     and taskid2seed(engine taskid) in another chunk grouping.
 
 Any failed check raises and the exit code is not 0. The last lines are
-the card, a `kernels` JSON line and `{"ok": true, "device": {...}}`.
+the card, a `kernels` JSON line (with each route's launches in phase 4
+and in phase 6) and `{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, where CUDA is not available.
 """
 from __future__ import annotations
@@ -44,6 +57,7 @@ from __future__ import annotations
 import concurrent.futures
 import gc
 import json
+import pathlib
 import statistics
 import sys
 import time
@@ -64,6 +78,14 @@ MAIN_PATH_SHAPES = (
 LAUNCHES_PER_CHUNK = sum(s[-1] for s in MAIN_PATH_SHAPES)   # 641
 STEPS, SIZE, SCHEDULER, CANONICAL_BATCH = 20, 512, "DPMSolverMultistep", 4
 ADDRESS = "0x" + "5a" * 20   # the miner address committed to
+# the port's boot self-test vector, valid for the build it records
+GOLDEN_FILE = "arbius_tpu_torch/goldens/anythingv3.h100.bfloat16.json"
+GOLDEN_INPUT = {"prompt": "arbius test cat", "negative_prompt": "",
+                "width": SIZE, "height": SIZE, "num_inference_steps": STEPS,
+                "scheduler": SCHEDULER}
+GOLDEN_SEED = 1337
+BUILD_FIELDS = ("card", "torch", "cuda", "cudnn")
+TASK_FEE = 10           # AIUS per on-chain task of phase 6
 
 
 def expected_launches(torch, flash) -> dict[str, int]:
@@ -261,6 +283,144 @@ def watch_images(torch, model) -> list:
     return flags
 
 
+def phase_node(torch, flash, expected, todo, main_wall) -> dict:
+    """Phase 6: record the golden, boot a MinerNode on an in-process
+    chain with it, mine `todo`'s inputs as on-chain tasks, claim them.
+    Returns the launches per route of the mining run."""
+    from arbius_tpu_torch.chain import WAD, Engine, TokenLedger
+    from arbius_tpu_torch.cli import record_golden
+    from arbius_tpu_torch.l0 import taskid2seed
+    from arbius_tpu_torch.node import (
+        LocalChain,
+        MinerNode,
+        MiningConfig,
+        ModelConfig,
+        build_registry,
+        solve_cid_batch,
+    )
+
+    def config(mid, golden=None):
+        return MiningConfig(canonical_batch=CANONICAL_BATCH, models=(
+            ModelConfig(id=mid, template="anythingv3",
+                        weights_dtype="bfloat16", golden=golden),))
+
+    # -- record: the golden with a fresh full-width model ------------------
+    rec_id = "0x" + "00" * 32
+    fresh = build_registry(config(rec_id), device="cuda").get(rec_id)
+    rec = record_golden(fresh, GOLDEN_INPUT, GOLDEN_SEED,
+                        canonical_batch=CANONICAL_BATCH, device="cuda")
+    committed = json.loads(
+        (pathlib.Path(__file__).resolve().parent / GOLDEN_FILE).read_text())
+    build = {k: rec["build"].get(k) for k in BUILD_FIELDS}
+    built = {k: committed["build"].get(k) for k in BUILD_FIELDS}
+    print(f"node: golden {rec['golden']['cid']} in {rec['elapsed_s']} s "
+          f"(build {json.dumps(rec['build'])})", flush=True)
+    if build == built:
+        check(rec["golden"] == committed["golden"],
+              f"golden {rec['golden']} != committed {committed['golden']}")
+        print(f"node: golden equals {GOLDEN_FILE}", flush=True)
+    else:
+        print(f"node: this build {build} is not the build {built} of "
+              f"{GOLDEN_FILE}; its CID is not compared", flush=True)
+
+    # -- world: engine, token, the miner's chain view and stake -------------
+    miner, user = "0x" + "aa" * 20, "0x" + "01" * 20
+    tok = TokenLedger()
+    eng = Engine(tok, start_time=0)
+    tok.mint(Engine.ADDRESS, 600_000 * WAD)
+    for a in (miner, user):
+        tok.mint(a, 1000 * WAD)
+        tok.approve(a, Engine.ADDRESS, 10**30)
+    mid_b = eng.register_model(user, user, 0,
+                               b'{"meta":{"title":"anythingv3"}}')
+    mid = "0x" + mid_b.hex()
+    chain = LocalChain(eng, miner)
+    chain.validator_deposit(100 * WAD)
+
+    # -- boot: registry on the card, the self-test at the main path's shape
+    cfg = config(mid, rec["golden"])
+    t0 = time.perf_counter()
+    registry = build_registry(cfg, device="cuda")
+    node = MinerNode(chain, cfg, registry)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    node.boot()
+    boot_s = time.perf_counter() - t1
+    print(f"node: registry built in {t1 - t0:.1f} s; booted with the "
+          f"self-test passing in {boot_s:.2f} s", flush=True)
+    flags = watch_images(torch, registry.get(mid))
+
+    # -- mine: TaskSubmitted -> solve -> commit -> reveal ----------------------
+    tids = ["0x" + eng.submit_task(
+        user, 0, user, mid_b, TASK_FEE * WAD,
+        json.dumps(h, sort_keys=True).encode()).hex() for _, h, _ in todo]
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    while node.tick():
+        pass
+    mine_s = time.perf_counter() - t0
+    launches = dict(flash.flash_attention.launches_by_route)
+    n_chunks = -(-len(todo) // CANONICAL_BATCH)
+    check(node.db.failed_jobs() == [],
+          f"failed jobs {node.db.failed_jobs()}")
+    check(launches == {r: n * n_chunks for r, n in expected.items()},
+          f"node kernel launches {launches}, expected {expected} x "
+          f"{n_chunks}")
+    check(len(flags) == n_chunks and all(bool(f) and bool(c)
+                                         for f, c in flags),
+          "node: non-finite or constant images")
+    onchain = []
+    for tid in tids:
+        sol = eng.solutions.get(bytes.fromhex(tid[2:]))
+        check(sol is not None and sol.validator == miner,
+              f"task {tid} not solved by the miner: {sol}")
+        cid = "0x" + sol.cid.hex()
+        check(chain.generate_commitment(tid, cid) in eng.commitments,
+              f"task {tid}: no commitment matching {cid}")
+        onchain.append(cid)
+    print("node: on-chain CIDs " + " ".join(onchain), flush=True)
+
+    # the fresh model, in another chunk grouping, on the engine's seeds
+    items = [(h, taskid2seed(tid)) for (_, h, _), tid in zip(todo, tids)]
+    order = [5, 4, 3, 2, 1, 0]
+    t0 = time.perf_counter()
+    again = solve_cid_batch(fresh, [items[i] for i in order],
+                            canonical_batch=CANONICAL_BATCH)
+    direct_s = time.perf_counter() - t0
+    for i, (cid, _) in zip(order, again):
+        check(cid == onchain[i], f"task {tids[i]}: on-chain {onchain[i]} "
+              f"!= fresh model {cid}")
+
+    # -- claim -----------------------------------------------------------
+    bal0 = tok.balance_of(miner)
+    eng.advance_time(eng.min_claim_solution_time
+                     + cfg.claim_delay_buffer + 1)
+    while node.tick():
+        pass
+    rise = tok.balance_of(miner) - bal0
+    want = len(tids) * TASK_FEE * WAD * 9 // 10   # the treasury keeps 10%
+    check(node.metrics.solutions_claimed == len(tids)
+          and all(eng.solutions[bytes.fromhex(t[2:])].claimed for t in tids),
+          f"claimed {node.metrics.solutions_claimed} of {len(tids)}")
+    check(rise == want, f"miner balance rose {rise}, expected {want}")
+
+    stages = node.metrics.stage_seconds
+    infer, commit = sum(stages["infer"]), sum(stages["commit"])
+    card = rec["build"]["card"] + ", " + rec["build"]["power_limit"]
+    print(f"node: mined {len(tids)} tasks in {n_chunks} chunks, "
+          f"{mine_s:.2f} s host time from the first tick to the last "
+          f"reveal; infer {infer:.3f} s, commit {commit:.4f} s "
+          f"(arbius_stage_seconds sums); "
+          f"{CANONICAL_BATCH * n_chunks * 3600 / infer:.1f} sol/h at full "
+          f"batches (phase 4: "
+          f"{CANONICAL_BATCH * n_chunks * 3600 / main_wall:.1f}, the fresh "
+          f"model's solve_cid_batch of the same tasks here "
+          f"{CANONICAL_BATCH * n_chunks * 3600 / direct_s:.1f}); claimed "
+          f"{len(tids)}, +{rise / WAD:g} AIUS; {card}", flush=True)
+    node.close()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -383,6 +543,12 @@ def main() -> int:
           f"solutions/h at full batches, {card}); the kernels' "
           f"{LAUNCHES_PER_CHUNK} calls (phase 2 times, {kernel_ms:.1f} ms) "
           f"are {kernel_ms / 10 / p50:.1f}% of p50", flush=True)
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6. node ------------------------------------------------------------
+    node_launches = phase_node(torch, flash, expected, todo, wall)
 
     bounds = {"tensor_core": "1e-4 + 2^-8 (|ref| + P|V|) in bf16",
               "tensor_core_wide": "1e-4 + 2^-8 (|ref| + P|V|) in bf16",
@@ -398,6 +564,7 @@ def main() -> int:
             "source": f"arbius_tpu_torch/csrc/{flash.SOURCES[route]}",
             "replaces": "arbius_tpu/ops/flash.py:34",
             "launches": launches[route],
+            "launches_node": node_launches[route],
             "max_abs_err": t["max_abs_err"],
             # times: one 512x512 batch's calls (bf16) at timed_at,
             # summed; see phase_kernels

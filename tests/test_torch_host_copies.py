@@ -1,7 +1,10 @@
 """The port keeps its own copies of the reference's host layers (L0,
-codecs, templates, tokenizer, diffusion tables) and imports nothing of
-arbius_tpu; these tests hold each copy's output byte-equal to its twin's,
-and the files that are copied verbatim byte-equal on disk."""
+codecs, templates, tokenizer, diffusion tables, and the node's host
+modules: obs, chain, config, db, store, pinners, retry, scheduler) and
+imports nothing of arbius_tpu; these tests hold each copy's output
+byte-equal to its twin's, the files that are copied verbatim byte-equal
+on disk, and the copied modules' text equal to their twins' once
+`arbius_tpu.` reads `arbius_tpu_torch.`."""
 from __future__ import annotations
 
 import pathlib
@@ -36,6 +39,67 @@ EMPTY_DIR = "QmUNLLsPACCz1vLxQVkXqqLX5R1X345qqfHbsf67hvA3Nn"
 ])
 def test_verbatim_copies(copy, original):
     assert (REPO / copy).read_bytes() == (REPO / original).read_bytes()
+
+
+# modules copied whole: only their imports name the port's package
+RENAMED_COPIES = [
+    "obs/__init__.py", "obs/journal.py", "obs/registry.py", "obs/trace.py",
+    "chain/engine.py", "chain/fixedpoint.py", "chain/token.py",
+    "quant/modes.py", "templates/engine.py",
+    "node/chain_client.py", "node/costmodel.py", "node/db.py",
+    "node/pinners.py", "node/retry.py", "node/store.py",
+]
+
+# twins whose body differs, and why (each module's docstring says how)
+CHANGED_TWINS = {
+    "node/node.py": "refuses unported settings at boot; no mesh, AOT "
+                    "cache, pipeline, perfscope or alert engine; "
+                    "self-test at the canonical batch; torch.profiler",
+    "node/config.py": "own copies of RULE_NAMES and validate_axes; no "
+                      "compile cache by default",
+    "node/solver.py": "the SD-1.5 half only, on CUDA streams and events",
+    "node/factory.py": "anythingv3 only, on a torch device",
+    "chain/__init__.py": "exports only engine, fixedpoint and token",
+    "node/sched.py": "module docstring only: no project history",
+}
+
+
+@pytest.mark.parametrize("path", RENAMED_COPIES)
+def test_renamed_copies(path):
+    ours = (REPO / "arbius_tpu_torch" / path).read_text()
+    theirs = (REPO / "arbius_tpu" / path).read_text()
+    assert ours == theirs.replace("arbius_tpu.", "arbius_tpu_torch.")
+
+
+@pytest.mark.parametrize("path", sorted(CHANGED_TWINS))
+def test_changed_twins_are_listed_truthfully(path):
+    """A twin listed as changed really differs (else it belongs in
+    RENAMED_COPIES), and is not also listed as a copy."""
+    ours = (REPO / "arbius_tpu_torch" / path).read_text()
+    theirs = (REPO / "arbius_tpu" / path).read_text()
+    assert ours != theirs.replace("arbius_tpu.", "arbius_tpu_torch.")
+    assert path not in RENAMED_COPIES
+
+
+def test_chain_exports_equal_reference():
+    """chain/__init__.py exports a subset of the reference's names, each
+    the same kind of object, with equal constants and emission curve."""
+    from arbius_tpu import chain as ref_chain
+    from arbius_tpu_torch import chain
+
+    assert set(chain.__all__) <= set(ref_chain.__all__)
+    for name in chain.__all__:
+        ours, theirs = getattr(chain, name), getattr(ref_chain, name)
+        if isinstance(theirs, int):
+            assert ours == theirs, name
+        else:
+            assert type(ours) is type(theirs) and \
+                ours.__name__ == theirs.__name__, name
+    for t in (1, 86400, 10**7, 10**9):
+        assert chain.target_ts(t) == ref_chain.target_ts(t)
+        for supply in (10**18, 10**22, 5 * 10**23):
+            assert chain.diff_mul(t, supply) == ref_chain.diff_mul(t, supply)
+            assert chain.reward(t, supply) == ref_chain.reward(t, supply)
 
 
 @pytest.mark.parametrize("path", IPFS, ids=lambda p: p.name)

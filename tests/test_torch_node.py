@@ -1,0 +1,638 @@
+"""The port's miner node against the reference's, on the CPU.
+
+Differential scenarios: both packages' `Engine` + `LocalChain` +
+`MinerNode` run the same script (the scenarios of tests/test_node.py)
+with the same fake deterministic runner. Each case runs one scenario in
+one package, holds the scenario's own checks, and requires the chain
+state (solutions, commitments, contestations, validators, balances), the
+node counters and the failed jobs to equal a run of the reference's.
+
+The real runner: the tiny float32 anythingv3 (the reference's init
+carried across by the bridge) mines tasks through the port's node at
+128x128, 2 steps, canonical batch 2; each on-chain CID equals the port's
+`solve_cid_batch` and the reference's PNG-and-CID path on the port's
+images, whatever the arrival order. Then the boot self-test against a
+golden from the port's record-golden, the settings the port refuses at
+boot, and `demo-mine` in a process where JAX and arbius_tpu cannot be
+imported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import importlib
+import json
+import pathlib
+import subprocess
+import sys
+import types
+
+import jax
+import numpy as np
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PACKAGES = ("arbius_tpu", "arbius_tpu_torch")
+
+MINER = "0x" + "aa" * 20
+OTHER = "0x" + "bb" * 20
+USER = "0x" + "01" * 20
+MODEL_ADDR = "0x" + "33" * 20
+COUNTERS = ("solutions_submitted", "solutions_claimed",
+            "contestations_submitted", "votes_cast", "vote_finishes",
+            "tasks_seen", "tasks_invalid", "tasks_unprofitable")
+
+
+@functools.cache
+def _pkg(name: str) -> types.SimpleNamespace:
+    chain = importlib.import_module(f"{name}.chain")
+    engine = importlib.import_module(f"{name}.templates.engine")
+    cid = importlib.import_module(f"{name}.l0.cid")
+    commitment = importlib.import_module(f"{name}.l0.commitment")
+    return types.SimpleNamespace(
+        name=name, Engine=chain.Engine, TokenLedger=chain.TokenLedger,
+        WAD=chain.WAD, node=importlib.import_module(f"{name}.node"),
+        load_template=engine.load_template,
+        hydrate_input=engine.hydrate_input, cid_hex=cid.cid_hex,
+        cid_of=cid.cid_of_solution_files, taskid2seed=commitment.taskid2seed)
+
+
+def fake_runner(hydrated: dict, seed: int) -> dict:
+    """Deterministic in (input, seed); output depends on both."""
+    blob = json.dumps({k: v for k, v in sorted(hydrated.items())
+                       if k != "seed"}).encode() + seed.to_bytes(8, "big")
+    return {"out-1.png": b"\x89PNG" + blob}
+
+
+def _config(P, **kw):
+    # the reference's default compile_cache_dir turns on JAX's cache;
+    # the port has none
+    return P.node.MiningConfig(compile_cache_dir=None, **kw)
+
+
+def build_world(P, *, evilmode=False, automine=None, miner_stake=100,
+                **cfg_overrides):
+    WAD = P.WAD
+    tok = P.TokenLedger()
+    eng = P.Engine(tok, start_time=10_000)
+    tok.mint(P.Engine.ADDRESS, 600_000 * WAD)
+    for a in (MINER, OTHER, USER):
+        tok.mint(a, 1_000 * WAD)
+        tok.approve(a, P.Engine.ADDRESS, 10**30)
+    mid = "0x" + eng.register_model(USER, MODEL_ADDR, 0,
+                                    b'{"meta":{"title":"anything"}}').hex()
+    registry = P.node.ModelRegistry()
+    registry.register(P.node.RegisteredModel(
+        id=mid, template=P.load_template("anythingv3"), runner=fake_runner))
+    chain = P.node.LocalChain(eng, MINER)
+    if miner_stake:
+        chain.validator_deposit(miner_stake * WAD)
+    cfg = _config(P, evilmode=evilmode,
+                  models=(P.node.ModelConfig(id=mid, template="anythingv3"),),
+                  automine=automine or P.node.AutomineConfig(),
+                  **cfg_overrides)
+    node = P.node.MinerNode(chain, cfg, registry)
+    node.boot()
+    drain(node)
+    return types.SimpleNamespace(eng=eng, tok=tok, chain=chain, node=node,
+                                 mid=mid, nodes=[node], notes={})
+
+
+def drain(node, n=10):
+    total = 0
+    for _ in range(n):
+        done = node.tick()
+        total += done
+        if done == 0:
+            break
+    return total
+
+
+def submit(w, prompt="a cat", fee=0):
+    return "0x" + w.eng.submit_task(
+        USER, 0, USER, bytes.fromhex(w.mid[2:]), fee,
+        json.dumps({"prompt": prompt, "negative_prompt": ""}).encode()).hex()
+
+
+def solution(w, tid):
+    return w.eng.solutions.get(bytes.fromhex(tid[2:]))
+
+
+def expected_cid(P, w, tid):
+    raw = json.loads(w.eng.task_input_data[bytes.fromhex(tid[2:])])
+    hydrated = P.hydrate_input(raw, P.load_template("anythingv3"))
+    hydrated["seed"] = P.taskid2seed(tid)
+    return P.cid_hex(P.cid_of(fake_runner(hydrated, hydrated["seed"])))
+
+
+def _lost_response(fn):
+    def wrapped(*args, **kwargs):
+        fn(*args, **kwargs)
+        raise OSError("sim: response lost after landing")
+    return wrapped
+
+
+# -- scenarios (tests/test_node.py) -----------------------------------------
+
+def sc_task_to_solution_to_claim(P):
+    w = build_world(P)
+    tid = submit(w, fee=10 * P.WAD)
+    drain(w.node)
+    sol = solution(w, tid)
+    assert sol.validator == MINER
+    assert "0x" + sol.cid.hex() == expected_cid(P, w, tid)
+    bal0 = w.tok.balance_of(MINER)
+    w.eng.advance_time(2000 + 121)
+    drain(w.node)
+    assert w.node.metrics.solutions_claimed == 1
+    assert w.tok.balance_of(MINER) - bal0 == 9 * P.WAD
+    return w
+
+
+def sc_deterministic_per_taskid(P):
+    w = build_world(P)
+    t1, t2 = submit(w, "same prompt"), submit(w, "same prompt")
+    drain(w.node)
+    assert solution(w, t1).cid != solution(w, t2).cid
+    return w
+
+
+def sc_unknown_model(P):
+    w = build_world(P)
+    other = w.eng.register_model(USER, MODEL_ADDR, 0, b"other template")
+    w.eng.submit_task(USER, 0, USER, other, 0,
+                      json.dumps({"prompt": "a", "negative_prompt": ""})
+                      .encode())
+    assert drain(w.node) == 0
+    assert w.node.db.job_count() == 1
+    return w
+
+
+def sc_min_fee(P):
+    w = build_world(P)
+    m = w.node.registry.get(w.mid)
+    w.node.registry.register(P.node.RegisteredModel(
+        id=w.mid, template=m.template, runner=m.runner, min_fee=5 * P.WAD))
+    low, ok = submit(w, fee=1 * P.WAD), submit(w, fee=5 * P.WAD)
+    drain(w.node)
+    assert solution(w, low) is None and solution(w, ok) is not None
+    return w
+
+
+def sc_invalid_input_contests(P):
+    w = build_world(P)
+    other = P.node.LocalChain(w.eng, OTHER)
+    other.validator_deposit(100 * P.WAD)
+    tid = "0x" + w.eng.submit_task(USER, 0, USER, bytes.fromhex(w.mid[2:]),
+                                   0, b"this is not json").hex()
+    drain(w.node)
+    assert w.node.db.is_invalid_task(tid) and solution(w, tid) is None
+    bad_cid = "0x1220" + "cc" * 32
+    other.signal_commitment(other.generate_commitment(tid, bad_cid))
+    other.submit_solution(tid, bad_cid)
+    drain(w.node)
+    assert w.node.metrics.contestations_submitted == 1
+    assert w.eng.contestations[bytes.fromhex(tid[2:])].validator == MINER
+    return w
+
+
+def sc_evilmode_contested(P):
+    w = build_world(P, evilmode=True)
+    honest_chain = P.node.LocalChain(w.eng, OTHER)
+    honest_chain.validator_deposit(100 * P.WAD)
+    registry = P.node.ModelRegistry()
+    registry.register(P.node.RegisteredModel(
+        id=w.mid, template=P.load_template("anythingv3"), runner=fake_runner))
+    honest = P.node.MinerNode(honest_chain, _config(P, models=(
+        P.node.ModelConfig(id=w.mid, template="anythingv3"),)), registry)
+    honest.boot()
+    w.nodes.append(honest)
+    tid = submit(w)
+    drain(w.node)
+    assert solution(w, tid).cid.endswith(b"\x06\x66")
+    drain(honest)
+    assert honest.metrics.contestations_submitted == 1
+    assert w.eng.contestations[bytes.fromhex(tid[2:])].validator == OTHER
+    return w
+
+
+def sc_stake_topup(P):
+    tok = P.TokenLedger()
+    eng = P.Engine(tok, start_time=10_000)
+    tok.mint(P.Engine.ADDRESS, 590_000 * P.WAD)
+    tok.mint(MINER, 1_000 * P.WAD)
+    tok.approve(MINER, P.Engine.ADDRESS, 10**30)
+    node = P.node.MinerNode(P.node.LocalChain(eng, MINER), _config(P),
+                            P.node.ModelRegistry())
+    node.boot()
+    drain(node)
+    minimum = eng.get_validator_minimum()
+    assert eng.validators[MINER].staked == pytest.approx(minimum * 1.2,
+                                                         rel=0.01)
+    assert node.db.job_count() == 1
+    return types.SimpleNamespace(eng=eng, tok=tok, nodes=[node], notes={})
+
+
+def sc_automine(P):
+    w = build_world(P)
+    w.node.config = _config(P, models=w.node.config.models,
+                            automine=P.node.AutomineConfig(
+                                enabled=True, model=w.mid, fee=0, delay=60,
+                                input={"prompt": "self work",
+                                       "negative_prompt": ""}))
+    w.node.db.queue_job("automine", {}, priority=10)
+    drain(w.node)
+    assert w.node.metrics.solutions_submitted == 1
+    w.eng.advance_time(61)
+    drain(w.node)
+    assert w.node.metrics.solutions_submitted == 2
+    return w
+
+
+def sc_boot_golden(P):
+    w = build_world(P)
+    m = w.node.registry.get(w.mid)
+    inp = {"prompt": "arbius test cat", "negative_prompt": ""}
+    good = P.cid_hex(P.cid_of(fake_runner(
+        P.hydrate_input(dict(inp), m.template), 1337)))
+    for cid in (good, "0x1220" + "00" * 32):
+        w.node.registry.register(P.node.RegisteredModel(
+            id=w.mid, template=m.template, runner=m.runner,
+            golden=(inp, 1337, cid)))
+        try:
+            w.node.boot()
+            w.notes[cid] = "booted"
+        except P.node.BootError as e:
+            w.notes[cid] = str(e)
+    assert w.notes[good] == "booted"
+    assert "self-test failed" in w.notes["0x1220" + "00" * 32]
+    return w
+
+
+def sc_version_check(P):
+    w = build_world(P)
+    w.eng.set_version(99)
+    with pytest.raises(P.node.BootError, match="version") as e:
+        w.node.boot()
+    w.notes["error"] = str(e.value)
+    return w
+
+
+def sc_quarantine(P):
+    w = build_world(P)
+
+    def broken_runner(hydrated, seed):
+        raise RuntimeError("model exploded")
+
+    m = w.node.registry.get(w.mid)
+    w.node.registry.register(P.node.RegisteredModel(
+        id=w.mid, template=m.template, runner=broken_runner))
+    submit(w)
+    drain(w.node)
+    assert any(name == "solve" for name, _ in w.node.db.failed_jobs())
+    assert all(j.method == "validatorStake"
+               for j in w.node.db.get_jobs(now=10**12))
+    return w
+
+
+def sc_config_validation(P):
+    w = build_world(P)
+    cfg = P.node.load_config(json.dumps({
+        "db_path": ":memory:",
+        "models": [{"id": "0x" + "ab" * 32, "template": "anythingv3"}],
+        "automine": {"enabled": True, "delay": 30}}))
+    w.notes["config"] = (cfg.models[0].template, cfg.automine.delay)
+    for bad in ('{"not_a_key": 1}', '{"stake": {"nope": 1}}',
+                '{"models": [{"id": "0x01"}]}'):
+        with pytest.raises(P.node.ConfigError) as e:
+            P.node.load_config(bad)
+        w.notes[bad] = str(e.value)
+    return w
+
+
+def sc_one_dispatch_of_4(P):
+    w = build_world(P)
+    batches = []
+
+    class BatchRunner:
+        def __call__(self, hydrated, seed):
+            return self.run_batch([(hydrated, seed)])[0]
+
+        def run_batch(self, items):
+            batches.append(len(items))
+            return [fake_runner(h, s) for h, s in items]
+
+    m = w.node.registry.get(w.mid)
+    w.node.registry.register(P.node.RegisteredModel(
+        id=w.mid, template=m.template, runner=BatchRunner()))
+    w.node.config = _config(P, models=w.node.config.models,
+                            canonical_batch=4)
+    tids = [submit(w, f"p{i}") for i in range(3)]
+    drain(w.node)
+    assert batches == [4]
+    assert all(solution(w, t) is not None for t in tids)
+    w.notes["batches"] = batches
+    return w
+
+
+def sc_lost_reveal(P):
+    w = build_world(P)
+    w.chain.submit_solution = _lost_response(w.chain.submit_solution)
+    tid = submit(w, fee=10 * P.WAD)
+    drain(w.node)
+    assert solution(w, tid).validator == MINER
+    assert w.node.db.has_job("claim", {"taskid": tid})
+    w.eng.advance_time(2000 + 121)
+    drain(w.node)
+    assert w.node.metrics.solutions_claimed == 1
+    return w
+
+
+def sc_lost_claim(P):
+    w = build_world(P)
+    tid = submit(w, fee=10 * P.WAD)
+    drain(w.node)
+    w.chain.claim_solution = _lost_response(w.chain.claim_solution)
+    w.eng.advance_time(2000 + 121)
+    drain(w.node)
+    assert solution(w, tid).claimed
+    assert w.node.db.failed_jobs() == []
+    return w
+
+
+SCENARIOS = {f.__name__[3:]: f for f in (
+    sc_task_to_solution_to_claim, sc_deterministic_per_taskid,
+    sc_unknown_model, sc_min_fee, sc_invalid_input_contests,
+    sc_evilmode_contested, sc_stake_topup, sc_automine, sc_boot_golden,
+    sc_version_check, sc_quarantine, sc_config_validation,
+    sc_one_dispatch_of_4, sc_lost_reveal, sc_lost_claim)}
+
+
+def _state(w) -> dict:
+    """What both packages must agree on after a scenario."""
+    eng = w.eng
+
+    def rows(table):
+        return {k.hex(): dataclasses.astuple(v) for k, v in
+                sorted(table.items())}
+
+    nodes = []
+    for node in w.nodes:
+        failed = node.obs.registry.counter(
+            "arbius_jobs_failed_total", labelnames=("method",))
+        nodes.append({
+            "counters": {c: getattr(node.metrics, c) for c in COUNTERS},
+            "jobs_failed": failed.summary(),
+            "failed_jobs": node.db.failed_jobs(),
+            "jobs": node.db.job_count()})
+    return {"solutions": rows(eng.solutions),
+            "commitments": {k.hex(): v for k, v in
+                            sorted(eng.commitments.items())},
+            "contestations": rows(eng.contestations),
+            "validators": {k: dataclasses.astuple(v) for k, v in
+                           sorted(eng.validators.items())},
+            "balances": dict(sorted(w.tok.balances.items())),
+            "now": eng.now, "nodes": nodes, "notes": w.notes}
+
+
+@functools.cache
+def _reference_state(name: str) -> dict:
+    return _state(SCENARIOS[name](_pkg("arbius_tpu")))
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_node_scenario_matches_reference(name, pkg):
+    """The scenario's own checks hold in `pkg`, and its chain state,
+    counters and failed jobs equal a run of the reference's (for the
+    reference itself: a second, fresh run)."""
+    got = _state(SCENARIOS[name](_pkg(pkg)))
+    assert got == _reference_state(name)
+
+
+# -- the real runner --------------------------------------------------------
+
+CANONICAL = 2
+
+
+@pytest.fixture(scope="module")
+def params():
+    from arbius_tpu.models.sd15 import SD15Config, SD15Pipeline
+    from arbius_tpu_torch.models.sd15 import params_from_jax
+
+    tree = jax.tree_util.tree_map(
+        np.asarray, SD15Pipeline(SD15Config.tiny()).init_params(seed=0))
+    return params_from_jax(tree)
+
+
+@pytest.fixture(scope="module")
+def registry(params):
+    P = _pkg("arbius_tpu_torch")
+    cfg = _config(P, models=(P.node.ModelConfig(
+        id="0x" + "00" * 32, template="anythingv3", tiny=True),))
+    return P.node.build_registry(cfg, device="cpu", params=params)
+
+
+def _task(i):
+    return {"prompt": f"a lighthouse, study {i}", "negative_prompt": "",
+            "width": 128, "height": 128, "num_inference_steps": 2,
+            "guidance_scale": 5.0 + i}
+
+
+def _mine(registry, order, golden=None):
+    """A port world whose node (the tiny model, canonical batch 2) mines
+    the tasks `order` in that order; returns (world, [(taskid, hydrated,
+    on-chain cid)])."""
+    P = _pkg("arbius_tpu_torch")
+    WAD = P.WAD
+    tok = P.TokenLedger()
+    eng = P.Engine(tok, start_time=10_000)
+    tok.mint(P.Engine.ADDRESS, 600_000 * WAD)
+    for a in (MINER, USER):
+        tok.mint(a, 1_000 * WAD)
+        tok.approve(a, P.Engine.ADDRESS, 10**30)
+    mid_b = eng.register_model(USER, MODEL_ADDR, 0, b'{"meta":{}}')
+    m = registry.get("0x" + "00" * 32)
+    reg = P.node.ModelRegistry()
+    reg.register(P.node.RegisteredModel(
+        id="0x" + mid_b.hex(), template=m.template, runner=m.runner,
+        golden=golden))
+    chain = P.node.LocalChain(eng, MINER)
+    chain.validator_deposit(100 * WAD)
+    node = P.node.MinerNode(chain, _config(P, canonical_batch=CANONICAL,
+                                           models=(P.node.ModelConfig(
+                                               id="0x" + mid_b.hex(),
+                                               template="anythingv3"),)),
+                            reg)
+    node.boot()
+    tids = ["0x" + eng.submit_task(USER, 0, USER, mid_b, WAD,
+                                   json.dumps(_task(i)).encode()).hex()
+            for i in order]
+    while node.tick():
+        pass
+    bal0 = tok.balance_of(MINER)
+    eng.advance_time(2000 + 121)
+    while node.tick():
+        pass
+    assert node.metrics.solutions_claimed == len(order)
+    assert tok.balance_of(MINER) - bal0 == len(order) * WAD * 9 // 10
+    out = []
+    for tid, i in zip(tids, order):
+        hydrated = P.hydrate_input(_task(i), m.template)
+        out.append((tid, hydrated,
+                    "0x" + eng.solutions[bytes.fromhex(tid[2:])].cid.hex()))
+    return out
+
+
+@pytest.fixture(scope="module")
+def mined(registry):
+    return _mine(registry, [0, 1, 2])
+
+
+def test_node_cids_equal_solve_cid_batch_and_reference_path(registry, mined):
+    """Each on-chain CID equals the port's solve_cid_batch on the same
+    (hydrated, taskid2seed(taskid)), solved in another grouping, and the
+    reference's solve_cid_batch on the port's images."""
+    from arbius_tpu.codecs import encode_png as ref_encode_png
+    from arbius_tpu.node import solver as ref_solver
+    from arbius_tpu.templates import load_template as ref_load_template
+    from arbius_tpu_torch.node import solve_cid_batch
+
+    P = _pkg("arbius_tpu_torch")
+    model = registry.get("0x" + "00" * 32)
+    items = [(h, P.taskid2seed(tid)) for tid, h, _ in mined]
+    onchain = [cid for _, _, cid in mined]
+    again = solve_cid_batch(model, items[::-1], canonical_batch=CANONICAL)
+    assert [c for c, _ in again][::-1] == onchain
+
+    pipe = model.runner.pipeline
+    images = {}
+    for h, s in items:
+        [img] = pipe.generate([h["prompt"]], [h["negative_prompt"]], [s],
+                              width=128, height=128, num_inference_steps=2,
+                              guidance_scale=[h["guidance_scale"]],
+                              scheduler=h["scheduler"])
+        images[s] = img
+
+    class Replay:
+        def run_batch(self, batch):
+            return [{"out-1.png": ref_encode_png(images[s])}
+                    for _, s in batch]
+
+    ref_model = ref_solver.RegisteredModel(
+        id=model.id, template=ref_load_template("anythingv3"),
+        runner=Replay())
+    want = ref_solver.solve_cid_batch(ref_model, items,
+                                      canonical_batch=CANONICAL)
+    assert [c for c, _ in want] == onchain
+
+
+def test_node_cids_independent_of_arrival_order(registry, mined):
+    """Mined in the reverse order (other taskids, other chunks), every
+    CID still equals solve_cid_batch on its own (hydrated, seed), and
+    the hydrated inputs are those of the first world."""
+    from arbius_tpu_torch.node import solve_cid_batch
+
+    P = _pkg("arbius_tpu_torch")
+    model = registry.get("0x" + "00" * 32)
+    rev = _mine(registry, [2, 1, 0])
+    assert [h for _, h, _ in rev] == [h for _, h, _ in mined][::-1]
+    for tid, h, cid in rev:
+        [(want, _)] = solve_cid_batch(model, [(h, P.taskid2seed(tid))],
+                                      canonical_batch=CANONICAL)
+        assert cid == want
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_boot_self_test_with_recorded_golden(registry, corrupt):
+    """A golden from the port's record-golden passes the boot self-test;
+    one hex digit changed raises BootError."""
+    from arbius_tpu_torch.cli import record_golden
+    from arbius_tpu_torch.node import BootError
+
+    model = registry.get("0x" + "00" * 32)
+    raw = {"prompt": "arbius test cat", "negative_prompt": "",
+           "width": 128, "height": 128, "num_inference_steps": 2}
+    rec = record_golden(model, raw, 1337, canonical_batch=CANONICAL,
+                        device="cpu")
+    g = rec["golden"]
+    assert rec["build"]["platform"] == "cpu"
+    cid = g["cid"]
+    if corrupt:
+        cid = cid[:-1] + ("0" if cid[-1] != "0" else "1")
+        with pytest.raises(BootError, match="self-test failed"):
+            _mine(registry, [0], golden=(g["input"], g["seed"], cid))
+    else:
+        _mine(registry, [0], golden=(g["input"], g["seed"], cid))
+
+
+# -- settings the port refuses ---------------------------------------------
+
+@pytest.mark.parametrize("overrides,item", [
+    ({"mesh": {"dp": 2}}, 11),
+    ({"aot_cache": {"enabled": True}}, 12),
+    ({"compile_cache_dir": ".jax_cache"}, 12),
+    ({"pipeline": {"enabled": True}}, 5),
+    ({"perfscope": {"enabled": True}}, 12),
+    ({"alerts": {"enabled": True}}, 12),
+    ({"fleet": {"enabled": True}}, 12),
+    ({"precision": {"default": "int8"}}, 6),
+    ({"precision": {"templates": {"anythingv3": "fp8"}}}, 6),
+    ({"models": [{"id": "0x" + "cd" * 32, "template": "textgen"}]}, 8),
+], ids=lambda v: json.dumps(v) if isinstance(v, dict) else str(v))
+def test_unported_settings_refused_at_boot(overrides, item):
+    from arbius_tpu_torch.node import BootError, load_config
+
+    cfg = load_config(overrides)
+    P = _pkg("arbius_tpu_torch")
+    eng = P.Engine(P.TokenLedger(), start_time=0)
+    with pytest.raises(BootError, match=f"ROADMAP queue 1 item {item}\\)"):
+        node = P.node.MinerNode(P.node.LocalChain(eng, MINER), cfg,
+                                P.node.ModelRegistry())
+        node.boot()
+
+
+def test_single_device_mesh_boots():
+    P = _pkg("arbius_tpu_torch")
+    eng = P.Engine(P.TokenLedger(), start_time=0)
+    node = P.node.MinerNode(P.node.LocalChain(eng, MINER),
+                            P.node.load_config({"mesh": {"dp": 1}}),
+                            P.node.ModelRegistry())
+    node.boot()
+    assert node.solve_layout == "single"
+
+
+@pytest.mark.parametrize("template,item", [
+    ("kandinsky2", 7), ("zeroscopev2xl", 9), ("damo", 9),
+    ("robust_video_matting", 10)])
+def test_registry_refuses_unported_templates(template, item):
+    P = _pkg("arbius_tpu_torch")
+    cfg = _config(P, models=(P.node.ModelConfig(
+        id="0x" + "00" * 32, template=template, tiny=True),))
+    with pytest.raises(P.node.ConfigError, match=f"item {item}\\)"):
+        P.node.build_registry(cfg, device="cpu")
+
+
+def test_profile_dir_writes_a_torch_profiler_trace(tmp_path):
+    w = build_world(_pkg("arbius_tpu_torch"), profile_dir=str(tmp_path),
+                    profile_every=1)
+    submit(w)
+    drain(w.node)
+    [trace] = tmp_path.glob("solve-*.json")
+    assert json.loads(trace.read_text())["traceEvents"]
+
+
+def test_demo_mine_without_jax():
+    """`demo-mine --device cpu --tiny` mines and claims a task in a
+    process where jax, jaxlib, flax and arbius_tpu cannot be imported."""
+    script = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'arbius_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from arbius_tpu_torch.cli import main\n"
+        "sys.exit(main(['demo-mine', '--device', 'cpu', '--tiny']))\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "claimed: True" in out.stdout
+    assert "cid 0x1220" in out.stdout
