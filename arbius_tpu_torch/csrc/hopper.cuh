@@ -1,0 +1,214 @@
+// Hopper (sm_90a) building blocks of the wgmma attention kernel
+// (flash_attn_wgmma.cu): wgmma descriptors, issue, fences and waits;
+// mbarriers; TMA tile loads through a CUtensorMap; named barriers; and
+// register reallocation between warpgroups (setmaxnreg). Thin wrappers of
+// the PTX, all inline and file-local; the mma.sync kernels keep to
+// tensor_core.cuh.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (header only; no libcuda link)
+
+#include "tensor_core.cuh"
+
+namespace {
+
+// -- wgmma -------------------------------------------------------------------
+
+// A shared-memory matrix descriptor for the 128-byte swizzled layout that a
+// TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes, 8-row
+// atoms of 1024 bytes (the tile's base 1024-byte aligned). `lbo` and `sbo`
+// are in bytes: for a K-major operand sbo is the atom stride (1024) and lbo
+// is unused; for an MN-major one lbo is the stride between 64-element
+// column blocks and sbo the stride between 8-row groups along K.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// before the first wgmma of a batch: registers and shared memory written
+// by ordinary instructions become visible to it
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving a read or a reuse of a register that an
+// in-flight wgmma writes (its accumulator) or reads (an A fragment) to
+// before the wgmma_wait that retires it.
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_reg(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// d (+)= A B, m64n128k16: A and B in shared memory (descriptors), both
+// K-major; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64],
+                                              uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d += A B, m64n40k16: A (bf16 pairs, the accumulator layout of
+// wgmma_ss) in registers, B in shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n40(float (&d)[20],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d += A B, m64n80k16: A (bf16 pairs, the accumulator layout of
+// wgmma_ss) in registers, B in shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// -- mbarrier and TMA ----------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// arrive, and expect `bytes` more from TMA copies before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory at `dst`, completing `bytes` of the barrier `bar`'s transaction
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// -- warpgroups -------------------------------------------------------------
+
+// named barrier `id` (1-15; 0 is __syncthreads') over `count` threads
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// give registers back (producer) or take them (consumers); the whole
+// warpgroup executes it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+}  // namespace

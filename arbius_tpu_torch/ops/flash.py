@@ -1,15 +1,19 @@
 """Exact softmax attention for [B, H, S, D]: the Hopper kernels and their
 plain PyTorch version, side by side.
 
-`flash_attention` launches one of three hand-written CUDA kernels, all
+`flash_attention` launches one of four hand-written CUDA kernels, all
 twins of the Pallas kernel in arbius_tpu/ops/flash.py (each source says
-what bounds it and how it is laid out). The two tensor-core routes take
+what bounds it and how it is laid out). The three tensor-core routes take
 bf16 with B/H/S strides that are multiples of 8 elements and 16-byte
-aligned data (their loads are 16-byte cp.async copies):
+aligned data (their loads are 16-byte copies):
 
+  - ``tensor_core_wgmma`` (``csrc/flash_attn_wgmma.cu``): Hopper's
+    warpgroup products (wgmma) fed by TMA, consumer warpgroups taking
+    turns on them, for D = 40 and 80 with Sq and Skv multiples of 128.
+    The UNet's large self-attentions take it.
   - ``tensor_core`` (``csrc/flash_attn_tc.cu``): mma.sync with bf16
-    operands, for 8 <= D <= 160, D % 8 == 0. The UNet's attentions take
-    it.
+    operands, for 8 <= D <= 160, D % 8 == 0. The UNet's other attentions
+    take it.
   - ``tensor_core_wide`` (``csrc/flash_attn_tc_wide.cu``): mma.sync with
     bf16 operands, the accumulator and S split over 8 warps, for
     D = 512. The VAE's mid-block attention takes it.
@@ -18,9 +22,9 @@ aligned data (their loads are 16-byte cp.async copies):
     strides).
 
 `route` is the rule between them: a pure function of dtype, head dim,
-strides and pointers, so a given call always takes the same kernel and
-the route is part of the determinism class. It is not a fallback: a
-launch that fails raises. The kernels take CUDA tensors only.
+strides, pointers and lengths, so a given call always takes the same
+kernel and the route is part of the determinism class. It is not a
+fallback: a launch that fails raises. The kernels take CUDA tensors only.
 `flash_attention_reference` is the plain version, the twin of
 `sp_attention_reference` (arbius_tpu/ops/ring.py): scores in the input
 dtype, softmax in float32, probabilities cast back to v's dtype.
@@ -40,13 +44,17 @@ import torch
 
 from arbius_tpu_torch.ops import _build
 
-SOURCES = {"tensor_core": "flash_attn_tc.cu",
+SOURCES = {"tensor_core_wgmma": "flash_attn_wgmma.cu",
+           "tensor_core": "flash_attn_tc.cu",
            "tensor_core_wide": "flash_attn_tc_wide.cu",
            "cuda_core": "flash_attn.cu"}
-_ENTRY = {"tensor_core": "arbius_flash_attn_tc_fwd",
+_ENTRY = {"tensor_core_wgmma": "arbius_flash_attn_wgmma_fwd",
+          "tensor_core": "arbius_flash_attn_tc_fwd",
           "tensor_core_wide": "arbius_flash_attn_tc_wide_fwd",
           "cuda_core": "arbius_flash_attn_fwd"}
 MAX_HEAD_DIM = 512
+WGMMA_HEAD_DIMS = (40, 80)
+WGMMA_TILE = 128   # the wgmma kernel's key tile; both lengths its multiples
 TC_MAX_HEAD_DIM = 160
 TC_WIDE_HEAD_DIM = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,7 +82,7 @@ def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       - bf16, cuda_core: 1e-4 + 2**-8 * |ref|: one rounding of the
         float32 result (<= 2**-9 of it), doubled, plus atol for float32
         summation order;
-      - bf16, tensor_core and tensor_core_wide: 1e-4 + 2**-8 * (|ref| +
+      - bf16, the three tensor-core routes: 1e-4 + 2**-8 * (|ref| +
         P |V|): P is rounded to bf16 before P V (<= 2**-9 of each
         p_i |v_i|, doubled as above), while l sums the unrounded P.
     """
@@ -91,26 +99,47 @@ def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return atol + rtol * size
 
 
-def route(dtype: torch.dtype, d: int, strides, pointers) -> str:
-    """The kernel a call takes. For bf16 with every stride in `strides`
-    (the B, H and S strides of q, k and v, in elements) a multiple of 8
-    and every data pointer in `pointers` 16-byte aligned:
-    "tensor_core" at 8 <= d <= 160 with d % 8 == 0, "tensor_core_wide"
-    at d = 512. "cuda_core" otherwise."""
+def routes(dtype: torch.dtype, d: int, strides, pointers, sq: int,
+           skv: int) -> list[str]:
+    """Every route whose kernel takes a call, the rule's choice first. The
+    tensor-core routes need bf16 with every stride in `strides` (the B, H
+    and S strides of q, k and v, in elements) a multiple of 8 and every
+    data pointer in `pointers` 16-byte aligned; then
+    "tensor_core_wgmma" takes d in {40, 80} with `sq` and `skv`
+    multiples of 128, "tensor_core" 8 <= d <= 160 with d % 8 == 0, and
+    "tensor_core_wide" d = 512. "cuda_core" takes every call."""
+    out = []
     if (dtype == torch.bfloat16 and all(s % 8 == 0 for s in strides)
             and all(ptr % 16 == 0 for ptr in pointers)):
+        if (d in WGMMA_HEAD_DIMS and sq > 0 and skv > 0
+                and sq % WGMMA_TILE == 0 and skv % WGMMA_TILE == 0):
+            out.append("tensor_core_wgmma")
         if 8 <= d <= TC_MAX_HEAD_DIM and d % 8 == 0:
-            return "tensor_core"
+            out.append("tensor_core")
         if d == TC_WIDE_HEAD_DIM:
-            return "tensor_core_wide"
-    return "cuda_core"
+            out.append("tensor_core_wide")
+    return [*out, "cuda_core"]
+
+
+def route(dtype: torch.dtype, d: int, strides, pointers, sq: int,
+          skv: int) -> str:
+    """The kernel a call takes: the first of `routes`. A pure function of
+    q's dtype, the head dim, the strides, the data pointers and the
+    query and key lengths."""
+    return routes(dtype, d, strides, pointers, sq, skv)[0]
+
+
+def routes_of(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> list[str]:
+    """`routes` applied to the tensors of one call."""
+    return routes(q.dtype, q.shape[-1],
+                  [s for t in (q, k, v) for s in t.stride()[:3]],
+                  [t.data_ptr() for t in (q, k, v)], q.shape[2], k.shape[2])
 
 
 def route_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """`route` applied to the tensors of one call."""
-    return route(q.dtype, q.shape[-1],
-                 [s for t in (q, k, v) for s in t.stride()[:3]],
-                 [t.data_ptr() for t in (q, k, v)])
+    return routes_of(q, k, v)[0]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -158,10 +187,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention takes CUDA tensors, got "
                          f"{q.device}; attention() uses the plain version "
                          "for CPU tensors")
-    which = route_of(q, k, v)
+    able = routes_of(q, k, v)
+    which = able[0]
     if kernel is not None:
-        if kernel not in SOURCES or (kernel != "cuda_core"
-                                     and which != kernel):
+        if kernel not in able:
             raise ValueError(f"kernel {kernel!r} cannot take these inputs "
                              f"(their route is {which!r})")
         which = kernel

@@ -7,20 +7,25 @@ Run from the root of a checkout on a machine with one CUDA card; it builds
 everything it needs from the checkout's sources. Phases, each printing
 its own lines with timings:
 
-  1. setup: the card's name and power limit; build the three
+  1. setup: the card's name and power limit; build the four
      flash-attention kernels, the tensor-core routes (nvcc,
-     csrc/flash_attn_tc.cu for D <= 160 and csrc/flash_attn_tc_wide.cu
-     for D = 512) and the CUDA-core route (nvcc, csrc/flash_attn.cu), and
-     the native PNG deflate (g++), all at once; ptxas registers and
-     spills per kernel (the wide kernel must not spill).
+     csrc/flash_attn_wgmma.cu for the UNet's large self-attentions,
+     csrc/flash_attn_tc.cu for its other attentions and
+     csrc/flash_attn_tc_wide.cu for the VAE's D = 512) and the CUDA-core
+     route (nvcc, csrc/flash_attn.cu), and the native PNG deflate (g++),
+     all at once; ptxas registers and spills per kernel (the wgmma and
+     the wide kernel must not spill).
   2. kernels: each route against the plain PyTorch version run in
-     float32 on the same inputs, at every shape the main path gives it:
-     the tensor-core route at the 8 bf16 UNet shapes, the wide
+     float32 on the same inputs, at every shape the main path (512x512)
+     and the template's default bucket (768x768) give it: the wgmma
+     route at the two large bf16 self-attentions, the tensor-core route
+     at the other 6 bf16 UNet shapes and forced onto those two, the wide
      tensor-core route at the bf16 VAE shape, the CUDA-core route at all
      9 in bf16 and in float32; per element within ops/flash.py's
      `error_bound` for that route, and bit-identical on relaunch. Each
      route's time beside the plain version's, SDPA's (a yardstick the
-     port never calls) and the least time the card could take.
+     port never calls), the host's time to enqueue it and the least time
+     the card could take (operations, bytes or exponentials).
   3. small reference: the tiny float32 config solved on the card and on
      the CPU from the same weights; uint8 pixels within one level.
   4. main path: anythingv3 at full width (seeded random weights) solves 6
@@ -29,11 +34,14 @@ its own lines with timings:
      32-byte commitments, finite non-constant images, and 641 kernel
      launches per chunk, per route as `expected_launches` derives them
      from ops/flash.py's rule (16 transformers x 2 attentions x 20 steps
-     on the tensor-core route + the VAE's one on the wide tensor-core
-     route, none on the CUDA-core route).
+     on the tensor-core routes, 200 of them the wgmma one's, + the VAE's
+     one on the wide tensor-core route, none on the CUDA-core route).
   5. determinism: a fresh pipeline solves the same tasks chunk by chunk
      with identical CIDs and the same launches per route, and one task
      keeps its CID among different neighbours.
+  5b. buckets: at 128x128, 768x768, 1024x768 and 768x1024 (4 steps) one
+     task keeps its CID among different neighbours, each chunk launching
+     each route as the rule says for that bucket.
   6. node: the port's miner node hosts anythingv3 at full width. The
      boot self-test golden (512x512, 20 steps, DPMSolverMultistep, seed
      1337, canonical batch 4, bf16 weights) is recorded with a fresh
@@ -64,19 +72,42 @@ import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
+# The SFU's exp2: 16 per clock per SM against 4096 dense bf16 FLOP per
+# clock per SM, so 3.87e12/s (132 SMs at the 1.83 GHz the bf16 peak
+# implies); every score of an attention costs one
+PEAK_EX2_PER_S = 16 * PEAK_BF16_FLOPS / 4096
 KV_TEXT = 77               # text tokens (cross-attention keys)
-# (B, H, Sq, Skv, D, launches per 512x512 batch of 4): the UNet's 16
-# transformers (5 at each of levels 0-2, 1 mid) x (self, cross) x 20
-# steps at B = 4 x 2 (classifier-free guidance), and the VAE mid block
-MAIN_PATH_SHAPES = (
-    (8, 8, 4096, 4096, 40, 100), (8, 8, 4096, KV_TEXT, 40, 100),
-    (8, 8, 1024, 1024, 80, 100), (8, 8, 1024, KV_TEXT, 80, 100),
-    (8, 8, 256, 256, 160, 100), (8, 8, 256, KV_TEXT, 160, 100),
-    (8, 8, 64, 64, 160, 20), (8, 8, 64, KV_TEXT, 160, 20),
-    (4, 1, 4096, 4096, 512, 1),
-)
-LAUNCHES_PER_CHUNK = sum(s[-1] for s in MAIN_PATH_SHAPES)   # 641
+# the UNet's transformers per latent level (1, 1/2, 1/4, 1/8 of the
+# latent's side) and their head dim: 5 at each of levels 0-2 (two down,
+# three up), 1 in the mid block; 8 heads each
+UNET_LEVELS = ((40, 5), (80, 5), (160, 5), (160, 1))
 STEPS, SIZE, SCHEDULER, CANONICAL_BATCH = 20, 512, "DPMSolverMultistep", 4
+
+
+def attention_shapes(width: int, height: int, steps: int = STEPS,
+                     batch: int = CANONICAL_BATCH) -> tuple:
+    """(B, H, Sq, Skv, D, launches per batch) of every attention call of
+    one canonical batch at `width` x `height`: each UNet transformer's
+    self- and cross-attention (77 text keys) once per step at B = 2 x
+    batch (classifier-free guidance), and the VAE mid block's one
+    single-head attention at D = 512."""
+    tokens = (width // 8) * (height // 8)
+    out = []
+    for level, (d, n) in enumerate(UNET_LEVELS):
+        s = tokens // 4 ** level
+        out += [(2 * batch, 8, s, s, d, n * steps),
+                (2 * batch, 8, s, KV_TEXT, d, n * steps)]
+    return (*out, (batch, 1, tokens, tokens, 512, 1))
+
+
+# the main path's calls at 512x512, and the template default's
+MAIN_PATH_SHAPES = attention_shapes(SIZE, SIZE)
+BUCKET_768_SHAPES = attention_shapes(768, 768)
+LAUNCHES_PER_CHUNK = sum(s[-1] for s in MAIN_PATH_SHAPES)   # 641
+# the buckets the neighbour check covers beside 512x512: the template's
+# smallest, its default, and its two largest (non-square)
+BUCKETS = ((128, 128), (768, 768), (1024, 768), (768, 1024))
+BUCKET_STEPS = 4
 ADDRESS = "0x" + "5a" * 20   # the miner address committed to
 # the port's boot self-test vector, valid for the build it records
 GOLDEN_FILE = "arbius_tpu_torch/goldens/anythingv3.h100.bfloat16.json"
@@ -88,15 +119,17 @@ BUILD_FIELDS = ("card", "torch", "cuda", "cudnn")
 TASK_FEE = 10           # AIUS per on-chain task of phase 6
 
 
-def expected_launches(torch, flash) -> dict[str, int]:
-    """Launches per route for one 512x512 chunk: ops/flash.py's `route`
-    applied to each main-path shape in bf16, with the strides of the
-    models' q/k/v views ([B, S, H*D] viewed as [B, H, S, D]) and
-    16-byte aligned data."""
+def expected_launches(torch, flash, shapes=MAIN_PATH_SHAPES
+                      ) -> dict[str, int]:
+    """Launches per route for one chunk (512x512 unless `shapes` names
+    another bucket's): ops/flash.py's `route` applied to each shape in
+    bf16, with the strides of the models' q/k/v views ([B, S, H*D]
+    viewed as [B, H, S, D]) and 16-byte aligned data."""
     out = dict.fromkeys(flash.SOURCES, 0)
-    for b, h, sq, skv, d, count in MAIN_PATH_SHAPES:
+    for b, h, sq, skv, d, count in shapes:
         strides = [st for s in (sq, skv, skv) for st in (s * h * d, d, h * d)]
-        out[flash.route(torch.bfloat16, d, strides, [0, 0, 0])] += count
+        out[flash.route(torch.bfloat16, d, strides, [0, 0, 0], sq,
+                        skv)] += count
     return out
 
 
@@ -119,91 +152,136 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_error(torch, flash, q, k, v, out, route) -> dict:
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Mean host time, in microseconds, to enqueue one call of `fn` (the
+    wrapper's own work and the launch; the card runs behind it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def kernel_error(torch, flash, q, k, v, out, route,
+                 max_bytes: int = 1 << 30) -> dict:
     """`route`'s output `out` against ref, the plain version run in
     float32 on the same inputs q, k, v: the largest |out - ref|, the RMS
     of ref, the largest ratio of |out - ref| to ops/flash.py's
-    `error_bound` for `route`, and whether every element is within it."""
-    ref = flash.flash_attention_reference(q.float(), k.float(), v.float())
-    err = (out.float() - ref).abs()
-    ratio = err / flash.error_bound(q, k, v, route)
-    return {"max_abs_err": err.max().item(),
-            "ref_rms": ref.pow(2).mean().sqrt().item(),
-            "err_over_bound": ratio.max().item(),
-            "ok": bool((ratio <= 1).all())}
+    `error_bound` for `route`, and whether every element is within it.
+    Both are computed over slices of B x H whose float32 scores take at
+    most `max_bytes` (one batch entry and at least one head each), so
+    S = 9216 fits on the card: the function and the bound are those of
+    the whole call, only the peak memory differs."""
+    b, h, sq, _ = q.shape
+    heads = max(1, min(h, max_bytes // (4 * sq * k.shape[2])))
+    worst = ratio_max = sumsq = 0.0
+    ok = True
+    for i in range(b):
+        for j in range(0, h, heads):
+            part = (slice(i, i + 1), slice(j, j + heads))
+            qs, ks, vs = q[part], k[part], v[part]
+            ref = flash.flash_attention_reference(qs.float(), ks.float(),
+                                                  vs.float())
+            err = (out[part].float() - ref).abs()
+            ratio = err / flash.error_bound(qs, ks, vs, route)
+            worst = max(worst, err.max().item())
+            ratio_max = max(ratio_max, ratio.max().item())
+            sumsq += ref.double().pow(2).sum().item()
+            ok = ok and bool((ratio <= 1).all())
+            del ref, err, ratio
+    return {"max_abs_err": worst,
+            "ref_rms": (sumsq / out.numel()) ** 0.5,
+            "err_over_bound": ratio_max, "ok": ok}
 
 
-def bound_ms(b, h, sq, skv, d, elem_bytes) -> tuple[float, float]:
-    """(operations-bound ms, bytes-bound ms) of one attention call: q, k,
-    v read once, o written once; 4*B*H*Sq*Skv*D operations."""
-    ops = 4.0 * b * h * sq * skv * d
-    nbytes = elem_bytes * b * h * d * (2 * sq + 2 * skv)
-    return ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(b, h, sq, skv, d, elem_bytes) -> dict[str, float]:
+    """The least time, in ms, one attention call could take, by each of
+    three limits: operations (4*B*H*Sq*Skv*D at the bf16 tensor-core
+    peak), bytes (q, k, v read once, o written once, at the HBM rate)
+    and exponentials (one exp2 per score, B*H*Sq*Skv, at the SFU's
+    rate). The bound is the largest."""
+    return {"operations": 4.0 * b * h * sq * skv * d / PEAK_BF16_FLOPS * 1e3,
+            "bytes": elem_bytes * b * h * d * (2 * sq + 2 * skv)
+            / PEAK_BYTES * 1e3,
+            "exponentials": float(b * h * sq * skv) / PEAK_EX2_PER_S * 1e3}
 
 
-_SUMMED = ("ms", "plain_ms", "library_ms", "ops_ms", "bytes_ms", "bound_ms")
+_LIMITS = ("operations", "bytes", "exponentials")
+_SUMMED = ("ms", "host_us", "plain_ms", "library_ms", *_LIMITS)
+PLAIN_SLICE_BYTES = 4 << 30   # float32 scores per timed plain call
 
 
-def phase_kernels(torch, flash) -> dict:
-    """Check every route at every main-path shape it is given here, and
-    time the bf16 cases. Returns per route the check's worst case and
-    times summed over one 512x512 batch's calls (ms, plain_ms,
-    library_ms, bound parts): over the calls the main path sends to the
-    route (launches_per_batch of them), or, for a route the main path
-    does not launch, over the main path's calls at every bf16 shape the
-    route was checked at, as if they were forced onto it. `timed_at`
-    lists those shapes with their calls per batch."""
+def _check_shape(torch, flash, gen, dtype, shape, bucket) -> list[dict]:
+    """One main-path shape in `dtype`: each route that is checked there
+    against the plain version, and in bf16 each one's time beside the
+    plain version's, SDPA's and the bound. The routes: the shape's own,
+    the mma.sync tensor-core route where the shape's own is the wgmma
+    one (so the two are timed in one run), and the CUDA-core route,
+    which takes every input."""
     import torch.nn.functional as F
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, h, sq, skv, d, count = shape
+    name = str(dtype).split(".")[-1]
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+               .to(dtype) for s in (sq, skv, skv))
+    main = flash.route_of(q, k, v)
+    routes = [main, *(["tensor_core"] if main == "tensor_core_wgmma"
+                      else []), *([] if main == "cuda_core"
+                                  else ["cuda_core"])]
+    iters = 5 if sq * skv >= 1 << 20 else 20
+    plain_ms = lib_ms = None
+    if dtype == torch.bfloat16:
+        # the plain version over slices of the batch where its scores
+        # would not fit beside the rest (S = 9216: 2.7 GB per entry)
+        per = max(1, PLAIN_SLICE_BYTES // (4 * h * sq * skv))
+        plain_ms = cuda_ms(torch, lambda: [
+            flash.flash_attention_reference(q[i:i + per], k[i:i + per],
+                                            v[i:i + per])
+            for i in range(0, b, per)], iters)
+        try:
+            lib_ms = cuda_ms(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v),
+                iters)
+        except RuntimeError as exc:   # a yardstick, not the port
+            print(f"  sdpa unavailable at {shape[:5]}: {exc}")
+    limits = bound_ms(b, h, sq, skv, d, 2)
     lines = []
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        for b, h, sq, skv, d, count in MAIN_PATH_SHAPES:
-            q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
-                       .to(dtype) for s in (sq, skv, skv))
-            main = flash.route_of(q, k, v)
-            routes = [main] if main == "cuda_core" else [main, "cuda_core"]
-            iters = 5 if sq * skv >= 1 << 20 else 20
-            plain_ms = lib_ms = None
-            if dtype == torch.bfloat16:
-                plain_ms = cuda_ms(
-                    torch, lambda: flash.flash_attention_reference(q, k, v),
-                    iters)
-                try:
-                    lib_ms = cuda_ms(
-                        torch,
-                        lambda: F.scaled_dot_product_attention(q, k, v),
-                        iters)
-                except RuntimeError as exc:   # a yardstick, not the port
-                    print(f"  sdpa unavailable at {(b, h, sq, skv, d)}: "
-                          f"{exc}")
-            ops_ms, bytes_ms = bound_ms(b, h, sq, skv, d, 2)
-            for route in routes:
-                got = flash.flash_attention(q, k, v, kernel=route)
-                again = flash.flash_attention(q, k, v, kernel=route)
-                err = kernel_error(torch, flash, q, k, v, got, route)
-                check(err["ok"], f"{route} kernel != plain at {name} "
-                      f"{(b, h, sq, skv, d)}: {err}")
-                check(torch.equal(got, again), f"{route} kernel not "
-                      f"bit-identical on relaunch at {(b, h, sq, skv, d)}")
-                line = {"route": route, "dtype": name,
-                        "shape": [b, h, sq, skv, d],
-                        "main_path": route == main, **err}
-                if dtype == torch.bfloat16:
-                    ms = cuda_ms(torch, lambda: flash.flash_attention(
-                        q, k, v, kernel=route), iters)
-                    line.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=max(ops_ms, bytes_ms),
-                                bound_by="operations" if ops_ms >= bytes_ms
-                                else "bytes", launches_per_batch=count)
-                    if lib_ms is not None:
-                        line["vs_sdpa"] = ms / lib_ms
-                print("kernel " + json.dumps(line), flush=True)
-                lines.append({**line, "ops_ms": ops_ms, "bytes_ms": bytes_ms})
-                del got, again
-            del q, k, v
-        torch.cuda.empty_cache()
+    for route in routes:
+        got = flash.flash_attention(q, k, v, kernel=route)
+        again = flash.flash_attention(q, k, v, kernel=route)
+        err = kernel_error(torch, flash, q, k, v, got, route)
+        check(err["ok"], f"{route} kernel != plain at {bucket} {name} "
+              f"{shape[:5]}: {err}")
+        check(torch.equal(got, again), f"{route} kernel not bit-identical "
+              f"on relaunch at {bucket} {shape[:5]}")
+        del got, again
+        line = {"route": route, "bucket": bucket, "dtype": name,
+                "shape": list(shape[:5]), "main_path": route == main, **err}
+        if dtype == torch.bfloat16:
+            ms = cuda_ms(torch, lambda: flash.flash_attention(
+                q, k, v, kernel=route), iters)
+            line.update(ms=ms, host_us=host_us(
+                torch, lambda: flash.flash_attention(q, k, v, kernel=route),
+                iters), plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=max(limits.values()),
+                        bound_by=max(limits, key=limits.get),
+                        launches_per_batch=count)
+            if lib_ms is not None:
+                line["vs_sdpa"] = ms / lib_ms
+        print("kernel " + json.dumps(line), flush=True)
+        lines.append({**line, **limits})
+    return lines
+
+
+def _per_route(flash, lines) -> dict:
+    """Per route, the check's worst case and times summed over one
+    batch's calls (ms, plain_ms, library_ms, the bound's three limits):
+    over the calls the bucket sends to the route (launches_per_batch of
+    them), or, for a route the bucket does not launch, over its calls at
+    every bf16 shape the route was checked at, as if they were forced
+    onto it. `timed_at` lists those shapes with their calls per batch."""
     out = {}
     for route in flash.SOURCES:
         mine = [ln for ln in lines if ln["route"] == route]
@@ -212,16 +290,37 @@ def phase_kernels(torch, flash) -> dict:
         timed = on_path or timed
         tot = {key: sum(ln["launches_per_batch"] * (ln[key] or 0.0)
                         for ln in timed) for key in _SUMMED}
+        tot["host_ms"] = tot.pop("host_us") / 1e3
         if any(ln["library_ms"] is None for ln in timed):
             tot["library_ms"] = None
         out[route] = {
-            **tot, "cases": len(mine),
+            **tot, "bound_ms": max(tot[key] for key in _LIMITS),
+            "bound_by": max(_LIMITS, key=tot.get), "cases": len(mine),
             "launches_per_batch": sum(ln["launches_per_batch"]
                                       for ln in on_path),
             "timed_at": [ln["shape"] + [ln["launches_per_batch"]]
                          for ln in timed],
             "max_abs_err": max(ln["max_abs_err"] for ln in mine),
             "err_over_bound": max(ln["err_over_bound"] for ln in mine)}
+    return out
+
+
+def phase_kernels(torch, flash) -> dict:
+    """Check every route at every shape the main path (512x512) and the
+    template's default bucket (768x768) give it, in bf16 and float32,
+    and time the bf16 cases. Returns, per bucket, `_per_route`'s
+    summary."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for bucket, shapes in (("512x512", MAIN_PATH_SHAPES),
+                           ("768x768", BUCKET_768_SHAPES)):
+        lines = []
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape in shapes:
+                lines += _check_shape(torch, flash, gen, dtype, shape,
+                                      bucket)
+                torch.cuda.empty_cache()
+        out[bucket] = _per_route(flash, lines)
     return out
 
 
@@ -281,6 +380,53 @@ def watch_images(torch, model) -> list:
 
     model.runner.pipeline.models.vae.register_forward_hook(hook)
     return flags
+
+
+def phase_buckets(torch, flash, model, template, hydrate_input,
+                  taskid2seed) -> None:
+    """Phase 5b: the buckets beside 512x512 that the node mines. At each
+    of BUCKETS one hydrated task is solved in two canonical chunks with
+    different neighbours (first of four, then second of three, padded)
+    and must keep its CID; each chunk launches each route as often as
+    `expected_launches` derives from ops/flash.py's rule at that bucket.
+    BUCKET_STEPS (4) inference steps keep the phase short: batch-position
+    invariance is a property of each operation, and every step runs the
+    same operations, so the step count does not change what is checked."""
+    from arbius_tpu_torch.node import solve_cid_batch
+
+    t_all = time.perf_counter()
+    for width, height in BUCKETS:
+        items = []
+        for i in range(6):
+            taskid = "0x" + f"{0x5A5A * (i + 3) + width:x}".rjust(64, "3")
+            raw = {"prompt": f"a harbour at dawn, bucket study {i}",
+                   "negative_prompt": "lowres", "width": width,
+                   "height": height, "num_inference_steps": BUCKET_STEPS,
+                   "scheduler": SCHEDULER, "guidance_scale": 6.0 + i}
+            items.append((hydrate_input(raw, template), taskid2seed(taskid)))
+        want = expected_launches(torch, flash, attention_shapes(
+            width, height, steps=BUCKET_STEPS))
+        t0 = time.perf_counter()
+        cids = []
+        for chunk in ([0, 1, 2, 3], [4, 0, 5]):
+            flash.reset_launches()
+            solved = solve_cid_batch(model, [items[i] for i in chunk],
+                                     canonical_batch=CANONICAL_BATCH)
+            got = dict(flash.flash_attention.launches_by_route)
+            check(got == want, f"{width}x{height}: launches {got} in one "
+                  f"chunk, expected {want}")
+            for cid, _ in solved:
+                check(len(cid) == 2 + 68 and cid.startswith("0x1220"),
+                      f"{width}x{height}: bad CIDv0 {cid}")
+            cids.append(solved[chunk.index(0)][0])
+        check(cids[0] == cids[1], f"{width}x{height}: task 0's CID "
+              f"{cids[0]} among neighbours 1-3, {cids[1]} among 4 and 5")
+        print(f"buckets: {width}x{height}, {BUCKET_STEPS} steps: task 0 "
+              f"keeps CID {cids[0]} among different neighbours; launches "
+              f"per chunk {want}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"buckets: {len(BUCKETS)} buckets in "
+          f"{time.perf_counter() - t_all:.1f} s", flush=True)
 
 
 def phase_node(torch, flash, expected, todo, main_wall) -> dict:
@@ -454,7 +600,7 @@ def main() -> int:
                 if "registers" in r]
         for reg, spill in zip(regs, spills):   # one pair per instantiation
             print(f"  {source} ptxas: {reg}; {spill}")
-        if route == "tensor_core_wide":
+        if route in ("tensor_core_wide", "tensor_core_wgmma"):
             check(spills and all("0 bytes spill stores, 0 bytes spill loads"
                                  in r for r in spills),
                   f"{source} spills registers: {spills}")
@@ -464,20 +610,28 @@ def main() -> int:
     # -- 2. kernels: every route -----------------------------------------
     expected = expected_launches(torch, flash)
     t0 = time.perf_counter()
-    k = phase_kernels(torch, flash)
-    per_batch = {r: t["launches_per_batch"] for r, t in k.items()}
-    check(per_batch == expected, f"main-path launches per route "
-          f"{per_batch}, expected {expected}")
+    buckets = phase_kernels(torch, flash)
+    for bucket, shapes in (("512x512", MAIN_PATH_SHAPES),
+                           ("768x768", BUCKET_768_SHAPES)):
+        per_batch = {r: t["launches_per_batch"]
+                     for r, t in buckets[bucket].items()}
+        want = expected_launches(torch, flash, shapes)
+        check(per_batch == want, f"{bucket} launches per route "
+              f"{per_batch}, expected {want}")
+    k = buckets["512x512"]
     kernel_ms = sum(t["ms"] for t in k.values() if t["launches_per_batch"])
-    print(f"kernels: checked {sum(t['cases'] for t in k.values())} "
-          f"route/shape/dtype cases in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for route, t in k.items():
-        print(f"kernels: {route} per 512x512 batch ({t['launches_per_batch']}"
-              f" main-path launches, bf16, timed at {t['timed_at']}): kernel "
-              f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, sdpa "
-              f"{t['library_ms']} ms, bound {t['bound_ms']:.3f} ms; worst "
-              f"error/bound {t['err_over_bound']:.3f}", flush=True)
+    cases = sum(t["cases"] for b in buckets.values() for t in b.values())
+    print(f"kernels: checked {cases} route/shape/dtype cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for bucket, routes in buckets.items():
+        for route, t in routes.items():
+            print(f"kernels: {route} per {bucket} batch "
+                  f"({t['launches_per_batch']} launches, bf16, timed at "
+                  f"{t['timed_at']}): kernel {t['ms']:.3f} ms, plain "
+                  f"{t['plain_ms']:.3f} ms, sdpa {t['library_ms']} ms, "
+                  f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}); host "
+                  f"{t['host_ms']:.3f} ms to enqueue them; worst "
+                  f"error/bound {t['err_over_bound']:.3f}", flush=True)
 
     # -- 3. small reference -----------------------------------------------
     phase_small_reference(torch)
@@ -543,6 +697,9 @@ def main() -> int:
           f"solutions/h at full batches, {card}); the kernels' "
           f"{LAUNCHES_PER_CHUNK} calls (phase 2 times, {kernel_ms:.1f} ms) "
           f"are {kernel_ms / 10 / p50:.1f}% of p50", flush=True)
+
+    # -- 5b. buckets --------------------------------------------------------
+    phase_buckets(torch, flash, fresh, template, hydrate_input, taskid2seed)
     del fresh
     gc.collect()
     torch.cuda.empty_cache()
@@ -550,36 +707,44 @@ def main() -> int:
     # -- 6. node ------------------------------------------------------------
     node_launches = phase_node(torch, flash, expected, todo, wall)
 
-    bounds = {"tensor_core": "1e-4 + 2^-8 (|ref| + P|V|) in bf16",
-              "tensor_core_wide": "1e-4 + 2^-8 (|ref| + P|V|) in bf16",
+    tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
+    bounds = {"tensor_core_wgmma": tc_bound, "tensor_core": tc_bound,
+              "tensor_core_wide": tc_bound,
               "cuda_core": "1e-4 + 2^-8 |ref| in bf16, "
                            "2e-5 + 2e-5 |ref| in float32"}
+    names = {"cuda_core": "flash_attention",
+             "tensor_core": "flash_attention_tc",
+             "tensor_core_wide": "flash_attention_tc_wide",
+             "tensor_core_wgmma": "flash_attention_wgmma"}
     entries = []
-    for route, name in (("cuda_core", "flash_attention"),
-                        ("tensor_core", "flash_attention_tc"),
-                        ("tensor_core_wide", "flash_attention_tc_wide")):
-        t = k[route]
+    for route in flash.SOURCES:
+        t, t768 = k[route], buckets["768x768"][route]
         entries.append({
-            "name": name, "route": "cuda",
+            "name": names[route], "route": "cuda",
             "source": f"arbius_tpu_torch/csrc/{flash.SOURCES[route]}",
             "replaces": "arbius_tpu/ops/flash.py:34",
             "launches": launches[route],
             "launches_node": node_launches[route],
-            "max_abs_err": t["max_abs_err"],
+            "max_abs_err": max(t["max_abs_err"], t768["max_abs_err"]),
             # times: one 512x512 batch's calls (bf16) at timed_at,
-            # summed; see phase_kernels
+            # summed; see _per_route
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"]
-            else "bytes",
+            "host_ms": t["host_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "launches_per_batch": t["launches_per_batch"],
             "timed_at": t["timed_at"],
+            "bucket_768x768": {key: t768[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "host_ms",
+                "launches_per_batch", "timed_at")},
             # reached only if every check of phase 2 passed
-            "check": {"cases": t["cases"],
+            "check": {"cases": t["cases"] + t768["cases"],
+                      "buckets": ["512x512", "768x768"],
                       "against": "plain version in float32, same inputs",
                       "bound": bounds[route],
-                      "worst_err_over_bound": t["err_over_bound"],
+                      "worst_err_over_bound": max(t["err_over_bound"],
+                                                  t768["err_over_bound"]),
                       "matches_plain": True, "relaunch_identical": True},
         })
     print(card)

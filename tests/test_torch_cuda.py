@@ -50,6 +50,9 @@ _TENSOR_CORE_SHAPES = [(1, 2, 200, 200, 40), (2, 8, 256, 77, 80),
 # the VAE's shape at 512x512, and ragged query and key lengths
 _WIDE_SHAPES = [(4, 1, 4096, 4096, 512), (1, 1, 200, 77, 512),
                 (2, 1, 1000, 1000, 512)]
+# the UNet's two large self-attentions at 512x512, and lengths that differ
+_WGMMA_SHAPES = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
+                 (1, 2, 128, 384, 40), (2, 3, 384, 128, 80)]
 
 
 @pytest.mark.parametrize("route,dtype,b,h,sq,skv,d", [
@@ -57,6 +60,7 @@ _WIDE_SHAPES = [(4, 1, 4096, 4096, 512), (1, 1, 200, 77, 512),
       for s in _CUDA_CORE_SHAPES),
     *(("tensor_core", torch.bfloat16, *s) for s in _TENSOR_CORE_SHAPES),
     *(("tensor_core_wide", torch.bfloat16, *s) for s in _WIDE_SHAPES),
+    *(("tensor_core_wgmma", torch.bfloat16, *s) for s in _WGMMA_SHAPES),
 ])
 def test_kernel_matches_plain(cuda, route, dtype, b, h, sq, skv, d):
     q, k, v = _inputs(cuda, b, h, sq, skv, d, dtype, seed=sq + d)
@@ -88,6 +92,42 @@ def test_wide_tensor_core_route_is_batch_position_invariant(cuda, b, h, sq,
     assert flash.route_of(q, k, v) == "tensor_core_wide"
     assert torch.equal(flash.flash_attention(q[perm], k[perm], v[perm]),
                        flash.flash_attention(q, k, v)[perm])
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", _WGMMA_SHAPES)
+def test_wgmma_route_is_batch_position_invariant(cuda, b, h, sq, skv, d):
+    """Permuting the batch (doubled, so that every entry has a
+    neighbour) permutes the output bit for bit."""
+    q, k, v = _inputs(cuda, 2 * b, h, sq, skv, d, torch.bfloat16, seed=9)
+    perm = torch.arange(2 * b, device=cuda).roll(1)
+    assert flash.route_of(q, k, v) == "tensor_core_wgmma"
+    assert torch.equal(flash.flash_attention(q[perm], k[perm], v[perm]),
+                       flash.flash_attention(q, k, v)[perm])
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_wgmma_route_takes_the_models_strided_views(cuda, d):
+    """Self-attention as the UNet hands it over: [B, S, H*D] viewed as
+    [B, H, S, D]; the TMA maps read those strides."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn(2, 256, 8 * d, generator=gen, device=cuda).bfloat16()
+    q = x.view(2, 256, 8, d).transpose(1, 2)
+    assert flash.route_of(q, q, q) == "tensor_core_wgmma"
+    out = flash.flash_attention(q, q, q)
+    qc = q.contiguous()
+    _assert_within_bound(out, qc, qc, qc, "tensor_core_wgmma")
+    assert torch.equal(flash.flash_attention(qc, qc, qc), out)
+
+
+def test_wgmma_route_refuses_what_the_rule_sends_elsewhere(cuda):
+    before = flash.flash_attention.launches_by_route["tensor_core_wgmma"]
+    for sq, skv, d in ((200, 128, 40), (128, 77, 40), (128, 128, 160)):
+        q = torch.zeros(1, 1, sq, d, device=cuda, dtype=torch.bfloat16)
+        kv = torch.zeros(1, 1, skv, d, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="cannot take"):
+            flash.flash_attention(q, kv, kv, kernel="tensor_core_wgmma")
+    assert flash.flash_attention.launches_by_route["tensor_core_wgmma"] == (
+        before)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -360,12 +360,157 @@ def sc_lost_claim(P):
     return w
 
 
+def sc_claim_latency_metrics(P):
+    w = build_world(P)
+    submit(w)
+    drain(w.node)
+    m = w.node.metrics
+    w.notes["recorded"] = (len(m.solve_latency), len(m.stage_seconds["infer"]),
+                           len(m.stage_seconds["commit"]))
+    assert w.notes["recorded"] == (1, 1, 1)
+    return w
+
+
+def sc_db_prune_keeps_unclaimed(P):
+    w = build_world(P)
+    t_old = submit(w, prompt="old")
+    drain(w.node)
+    w.eng.advance_time(2200)
+    drain(w.node)  # claimed
+    t_new = submit(w, prompt="new")
+    drain(w.node)  # solved, not claimed yet
+    w.notes["removed"] = w.node.db.prune_before(w.eng.now + 10**6)
+    assert w.notes["removed"] == 1
+    assert w.node.db.get_task(t_old) is None
+    assert w.node.db.get_task(t_new) is not None
+    return w
+
+
+def sc_delegated_validator_stake_seam(P):
+    """With `delegated_validator`, stake reads and the auto-top-up target
+    the delegated address; the node's own wallet pays but never stakes;
+    the caveat is logged at boot."""
+    import logging
+
+    delegated = "0x" + "dd" * 20
+    tok = P.TokenLedger()
+    eng = P.Engine(tok, start_time=10_000)
+    tok.mint(P.Engine.ADDRESS, 590_000 * P.WAD)
+    tok.mint(MINER, 1_000 * P.WAD)
+    tok.approve(MINER, P.Engine.ADDRESS, 10**30)
+    chain = P.node.LocalChain(eng, MINER, validator_address=delegated)
+    node = P.node.MinerNode(
+        chain, _config(P, delegated_validator=delegated),
+        P.node.ModelRegistry())
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger("arbius.node").addHandler(handler)
+    try:
+        node.boot()
+    finally:
+        logging.getLogger("arbius.node").removeHandler(handler)
+    assert any("delegated_validator" in r.getMessage() for r in records)
+    drain(node)
+    assert eng.validators[delegated].staked >= eng.get_validator_minimum()
+    assert MINER not in eng.validators
+    assert chain.validator_staked() == eng.validators[delegated].staked
+    with pytest.raises(P.node.ConfigError, match="delegated_validator"):
+        P.node.MiningConfig(delegated_validator="not-an-address")
+    return types.SimpleNamespace(eng=eng, tok=tok, chain=chain, node=node,
+                                 mid=None, nodes=[node], notes={})
+
+
+def sc_reveal_never_lands(P):
+    w = build_world(P)
+
+    def down(*a, **k):
+        raise OSError("sim: endpoint down")
+
+    w.chain.submit_solution = down
+    tid = submit(w)
+    drain(w.node)
+    assert "solve" in {m for m, d in w.node.db.failed_jobs()
+                       if d.get("taskid") == tid}
+    assert solution(w, tid) is None
+    return w
+
+
+def sc_stake_heartbeat_survives_chain_fault(P):
+    w = build_world(P)
+    orig = w.chain.validator_staked
+
+    def down():
+        raise OSError("sim: endpoint down")
+
+    w.chain.validator_staked = down
+    w.eng.advance_time(700)
+    drain(w.node)
+    assert any(m == "validatorStake" for m, _ in w.node.db.failed_jobs())
+    assert w.node.db.has_job("validatorStake", {})
+    w.chain.validator_staked = orig
+    w.eng.advance_time(700)
+    drain(w.node)
+    return w
+
+
+def _db_world(P):
+    w = build_world(P)
+    w.db = P.node.NodeDB(":memory:")
+    return w
+
+
+def sc_get_jobs_priority_then_id(P):
+    w = _db_world(P)
+    db = w.db
+    ids = [db.queue_job("a", {"n": i}) for i in range(3)]
+    hot = db.queue_job("hot", {}, priority=50)
+    warm = db.queue_job("warm", {}, priority=10)
+    assert [j.id for j in db.get_jobs(now=0)] == [hot, warm] + ids
+    db.delete_job(ids[1])
+    w.notes["after_delete"] = [j.data.get("n") for j in db.get_jobs(now=0)
+                               if j.method == "a"]
+    assert w.notes["after_delete"] == [0, 2]
+    db.close()
+    return w
+
+
+def sc_get_jobs_limit_boundary(P):
+    w = _db_world(P)
+    db = w.db
+    for i in range(101):
+        db.queue_job("a", {"n": i})
+    w.notes["counts"] = [len(db.get_jobs(now=0)),
+                         len(db.get_jobs(now=0, limit=101)),
+                         len(db.get_jobs(now=0, limit=1))]
+    assert w.notes["counts"] == [100, 101, 1]
+    db.close()
+    return w
+
+
+def sc_get_jobs_excludes_future_waituntil(P):
+    w = _db_world(P)
+    db = w.db
+    due = db.queue_job("now", {}, waituntil=100)
+    edge = db.queue_job("edge", {}, waituntil=200)
+    db.queue_job("later", {}, waituntil=201)
+    assert [j.id for j in db.get_jobs(now=100)] == [due]
+    assert [j.id for j in db.get_jobs(now=200)] == [due, edge]
+    w.notes["due"] = [j.method for j in db.get_jobs(now=200)]
+    db.close()
+    return w
+
+
 SCENARIOS = {f.__name__[3:]: f for f in (
     sc_task_to_solution_to_claim, sc_deterministic_per_taskid,
     sc_unknown_model, sc_min_fee, sc_invalid_input_contests,
     sc_evilmode_contested, sc_stake_topup, sc_automine, sc_boot_golden,
     sc_version_check, sc_quarantine, sc_config_validation,
-    sc_one_dispatch_of_4, sc_lost_reveal, sc_lost_claim)}
+    sc_one_dispatch_of_4, sc_lost_reveal, sc_lost_claim,
+    sc_claim_latency_metrics, sc_db_prune_keeps_unclaimed,
+    sc_delegated_validator_stake_seam, sc_reveal_never_lands,
+    sc_stake_heartbeat_survives_chain_fault, sc_get_jobs_priority_then_id,
+    sc_get_jobs_limit_boundary, sc_get_jobs_excludes_future_waituntil)}
 
 
 def _state(w) -> dict:

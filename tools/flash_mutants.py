@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Show that chip_smoke.py's kernel check catches a subtly wrong kernel,
-on each of the three attention routes.
+on each of the four attention routes.
 
     python3 tools/flash_mutants.py
 
 Needs one CUDA card and nvcc; imports torch and the port only. For each
-kernel source (csrc/flash_attn_tc.cu, the tensor-core route,
-csrc/flash_attn_tc_wide.cu, the wide tensor-core route, and
-csrc/flash_attn.cu, the CUDA-core route) builds the source and copies of
-it with one deliberate fault each (MUTANTS) into a temporary directory,
-all at once, and runs each build at the bf16 main-path shapes its route
-takes (the tensor-core route at the 8 UNet shapes, the wide one at the
-VAE's, the CUDA-core route at all 9) through chip_smoke.py's check: the kernel against the plain
+kernel source (csrc/flash_attn_wgmma.cu, the wgmma route,
+csrc/flash_attn_tc.cu, the tensor-core route, csrc/flash_attn_tc_wide.cu,
+the wide tensor-core route, and csrc/flash_attn.cu, the CUDA-core route)
+builds the source and copies of it with one deliberate fault each
+(MUTANTS) into a temporary directory, all at once, and runs each build at
+the bf16 main-path shapes its kernel takes (the wgmma route at the two
+large self-attentions, the tensor-core route at the 8 UNet shapes, the
+wide one at the VAE's, the CUDA-core route at all 9) through
+chip_smoke.py's check: the kernel against the plain
 version in float32 on the same inputs, within ops/flash.py's
 `error_bound` for the route. For each build it prints one JSON line: the
 largest error, the output's RMS and the worst error/bound per shape,
@@ -46,6 +48,7 @@ _TENSOR_CORE_FAULTS = {
                         "const float sl2 = 1.01f * p.scale * kLog2e;"),
 }
 MUTANTS = {
+    "tensor_core_wgmma": _TENSOR_CORE_FAULTS,
     "tensor_core": _TENSOR_CORE_FAULTS,
     "tensor_core_wide": _TENSOR_CORE_FAULTS,
     "cuda_core": {
@@ -59,26 +62,34 @@ MUTANTS = {
 }
 
 
-def build_all(tmp: Path) -> dict[tuple[str, str], Path]:
+def build_edited(tmp: Path, edits: dict) -> dict[tuple[str, str], Path]:
+    """Compile into `tmp`, all at once, one copy of a route's source per
+    key (route, name) of `edits`, with that key's list of (text,
+    replacement) pairs applied; each text must occur once. Returns the
+    library of each key."""
     from arbius_tpu_torch.ops import _build, flash
 
     jobs = {}
-    for route, mutants in MUTANTS.items():
-        source = (_build.CSRC / flash.SOURCES[route]).read_text()
-        for name, edit in mutants.items():
-            text = source
-            if edit is not None:
-                if text.count(edit[0]) != 1:
-                    raise RuntimeError(f"{route} {name}: {edit[0]!r} not "
-                                       "found once")
-                text = text.replace(*edit)
-            src = tmp / f"{route}-{name}.cu"
-            src.write_text(text)
-            jobs[route, name] = (src, src.with_suffix(".so"))
+    for (route, name), pairs in edits.items():
+        text = (_build.CSRC / flash.SOURCES[route]).read_text()
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{route} {name}: {old!r} not found once")
+            text = text.replace(old, new)
+        src = tmp / f"{route}-{name}.cu"
+        src.write_text(text)
+        jobs[route, name] = (src, src.with_suffix(".so"))
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: _build.compile_library(*job),
                       jobs.values()))
     return {key: so for key, (_, so) in jobs.items()}
+
+
+def build_all(tmp: Path) -> dict[tuple[str, str], Path]:
+    return build_edited(tmp, {
+        (route, name): [] if edit is None else [edit]
+        for route, mutants in MUTANTS.items()
+        for name, edit in mutants.items()})
 
 
 def run(torch, flash, route: str, name: str) -> dict:
@@ -87,7 +98,7 @@ def run(torch, flash, route: str, name: str) -> dict:
     for b, h, sq, skv, d, _ in chip_smoke.MAIN_PATH_SHAPES:
         q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
                    .bfloat16() for s in (sq, skv, skv))
-        if route != "cuda_core" and flash.route_of(q, k, v) != route:
+        if route not in flash.routes_of(q, k, v):
             continue
         out = flash.flash_attention(q, k, v, kernel=route)
         err = chip_smoke.kernel_error(torch, flash, q, k, v, out, route)
