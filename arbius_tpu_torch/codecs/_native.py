@@ -17,10 +17,16 @@ from arbius_tpu_torch.ops import _build
 
 
 def _declare(lib: ctypes.CDLL) -> None:
+    """Declare the entry point, then call it once: codecs.cc fills its
+    static length tables on its first call with no lock, so that call is
+    made here, where `_build.load` holds its lock and before the handle
+    reaches any encode thread."""
     lib.arbius_deflate_fixed.restype = ctypes.c_size_t
     lib.arbius_deflate_fixed.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t,
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t]
+    out = (ctypes.c_uint8 * 64)()
+    lib.arbius_deflate_fixed(b"abcabc", 6, out, len(out))
 
 
 @functools.cache

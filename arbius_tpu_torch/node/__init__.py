@@ -1,7 +1,6 @@
 """Miner node (L3'): event loop, job queue, solver pipeline, stake
 manager, for the port. Mirrors arbius_tpu/node's exports apart from the
-parts that wait for a later slice (the JSON-RPC chain, the other
-families' runners, the staged pipeline)."""
+other families' runners, which wait for a later slice."""
 from arbius_tpu_torch.node.chain_client import LocalChain
 from arbius_tpu_torch.node.config import (
     AutomineConfig,
@@ -24,6 +23,7 @@ from arbius_tpu_torch.node.pinners import (
     PinMismatchError,
 )
 from arbius_tpu_torch.node.retry import RetriesExhausted, expretry
+from arbius_tpu_torch.node.rpc_chain import ChainRpcError, RpcChain
 from arbius_tpu_torch.node.solver import (
     ModelRegistry,
     RegisteredModel,
@@ -38,11 +38,13 @@ from arbius_tpu_torch.node.store import ContentStore, cid_b58
 from arbius_tpu_torch.obs import Obs
 
 __all__ = [
-    "AutomineConfig", "BootError", "ConfigError", "ContentStore",
+    "AutomineConfig", "BootError", "ChainRpcError", "ConfigError",
+    "ContentStore",
     "DeploymentConfig", "HttpDaemonPinner", "Job", "LocalChain",
     "LocalPinner", "MinerNode", "MiningConfig", "ModelConfig",
     "ModelRegistry", "NodeDB", "NodeMetrics", "Obs", "PinMismatchError",
-    "PipelineConfig", "RegisteredModel", "RetriesExhausted", "SD15Runner",
+    "PipelineConfig", "RegisteredModel", "RetriesExhausted", "RpcChain",
+    "SD15Runner",
     "SchedConfig", "StakeConfig", "build_anythingv3", "build_registry",
     "chunk_items", "cid_b58", "expretry", "load_config", "load_deployment",
     "solve_cid", "solve_cid_batch", "solve_files", "solve_files_batch",

@@ -25,13 +25,16 @@ device. What reaches JAX or an unported module changes:
   - `MinerNode` refuses, with `BootError` naming the ROADMAP item that
     ports it, every setting that needs a module the port lacks: a mesh
     of more than one device, `aot_cache.enabled`, `compile_cache_dir`,
-    `pipeline.enabled`, `perfscope.enabled`, `alerts.enabled`,
-    `fleet.enabled`, a textgen model and a precision mode other than
-    bf16 (`_refuse_unported`). So the mesh build and contract audit, the
-    AOT cache, the staged pipeline, the perfscope cards and the alert
-    engine are gone from the body, with the mesh intake gate; no bucket
-    is disk-warm (`bucket_disk_warm`), and `solve_layout` stays
-    "single".
+    `perfscope.enabled`, `alerts.enabled`, `fleet.enabled`, a textgen
+    model and a precision mode other than bf16 (`_refuse_unported`). So
+    the mesh build and contract audit, the AOT cache, the perfscope
+    cards and the alert engine are gone from the body, with the mesh
+    intake gate; no bucket is disk-warm (`bucket_disk_warm`,
+    `_disk_warm_tags` stays empty), `healthwatch` stays None (the
+    control RPC reports alerts as disabled), and `solve_layout` stays
+    "single". `_observe_infer` feeds the cost-tagged
+    infer sample only (no perfscope card to bind). The staged pipeline
+    (`pipeline.enabled`, node/pipeline.py) is the reference's.
   - The reference's attention-impl check has no counterpart: the port's
     ops/flash.py picks its route by a fixed rule and has no override.
   - The boot self-test solves the golden at the canonical batch
@@ -157,7 +160,6 @@ def _refuse_unported(config: MiningConfig) -> None:
     refused = (
         (config.aot_cache.enabled, "aot_cache.enabled", 12),
         (bool(config.compile_cache_dir), "compile_cache_dir", 12),
-        (config.pipeline.enabled, "pipeline.enabled", 5),
         (config.perfscope.enabled, "perfscope.enabled", 12),
         (config.alerts.enabled, "alerts.enabled", 12),
         (config.fleet.enabled, "fleet.enabled", 12),
@@ -236,6 +238,11 @@ class MinerNode:
         # bare single-node miner, bit-for-bit.
         self.task_feed = None
         self.commit_guard = None
+        # the alert engine and the AOT cache are not ported (refused at
+        # boot): no alerts, and no bucket is disk-warm. The control
+        # RPC's /debug/alerts and /debug/costmodel read both.
+        self.healthwatch = None
+        self._disk_warm_tags: frozenset = frozenset()
         # mesh-layout tag of the solve programs (part of every cost-model
         # key: a tp2 bucket and a single-device bucket are different
         # programs with different chip-seconds); one device in the port
@@ -272,9 +279,17 @@ class MinerNode:
 
         self._sched = CostSched(self, config.sched) \
             if config.sched.enabled else FifoSched()
+        self._pipeline = None
+        if config.pipeline.enabled:
+            from arbius_tpu_torch.node.pipeline import SolvePipeline
+
+            self._pipeline = SolvePipeline(self, config.pipeline)
 
     def close(self) -> None:
-        """Release the sqlite handle. Safe to call more than once."""
+        """Release owned resources: encode pool threads, then the sqlite
+        handle. Safe to call more than once."""
+        if self._pipeline is not None:
+            self._pipeline.shutdown()
         self.db.close()
 
     # -- boot (start.ts:11-52 + index.ts:971-1020) -----------------------
@@ -757,6 +772,17 @@ class MinerNode:
         with self.state_lock:
             packed = self._sched.pack(scored)
         try:
+            if self._pipeline is not None and not self.config.evilmode:
+                # staged executor (docs/pipeline.md): same buckets, same
+                # chunking, same bytes — a pipelined schedule in packed
+                # order (the device stage feeds in pack order). evilmode
+                # (a contestation drill that fabricates CIDs without
+                # solving) stays on the reference-shaped path below.
+                buckets = [(self.registry.get(b.key[0]), b.entries, b.key)
+                           for b in packed]
+                with span("solve.pipeline",
+                          n=sum(len(e) for _, e, _ in buckets)):
+                    return self._pipeline.run(buckets)
             done = 0
             for b in packed:
                 m = self.registry.get(b.key[0])
@@ -774,6 +800,15 @@ class MinerNode:
 
         return make_cost_tag(key[0], bucket_str(key), self.solve_layout, n,
                              mode=bucket_mode(key))
+
+    def _observe_infer(self, key: tuple, n: int, seconds: float,
+                       hydrated: dict | None = None) -> None:
+        """ONE bucket dispatch's infer observation, shared by both solve
+        schedules: the cost-tagged `arbius_stage_seconds{infer}` sample
+        (the learned model's input). `hydrated` is the reference's
+        perfscope join key; the port has no perfscope cards."""
+        self._h_stage.observe(seconds, stage="infer",
+                              tag=self._cost_tag(key, n))
 
     def _solve_bucket(self, m, entries: list[tuple[Job, dict]],
                       key: tuple) -> int:
@@ -798,8 +833,8 @@ class MinerNode:
         # tagged with the cost key so the learned model can attribute
         # the bucket's wall seconds to (model, bucket, layout, n)
         # detlint: allow[DET101] obs stage timing; never reaches solve bytes
-        self._h_stage.observe(time.perf_counter() - w_start, stage="infer",
-                              tag=self._cost_tag(key, len(entries)))
+        self._observe_infer(key, len(entries),
+                            time.perf_counter() - w_start)
         done = 0
         # detlint: allow[DET101] obs stage timing; never reaches solve bytes
         w_commit = time.perf_counter()

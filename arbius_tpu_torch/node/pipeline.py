@@ -1,0 +1,445 @@
+"""solvepipe — the staged solve executor (docs/pipeline.md).
+
+The synchronous solve path runs the whole post-infer tail — encode,
+CID, the pin round-trip, commit and reveal — on the tick thread while
+the chip idles. This module decouples the three cost domains of that
+hot loop into stages with bounded hand-off buffers:
+
+  device   canonical_batch chunks dispatched up to `depth` ahead (XLA
+           async dispatch: the call queues the program on the chip and
+           returns immediately; generalizes solver.py's old one-deep
+           overlap to a configurable prefetch window)
+  encode   transfer + codec + CID per chunk on a pool of
+           `encode_workers` threads (0 = inline on the tick thread);
+           per-chunk work is a pure function of the device result, so
+           worker count and completion order can never change bytes
+  network  pin → commit → reveal per task, on the tick thread, drained
+           while later chunks are already on the chip; the backlog is
+           bounded by `max_inflight_pins`
+
+Determinism: chunking is `solver.chunk_items` (shared with the serial
+path), encode is per-chunk pure, and the network stage consumes results
+strictly in task order — the chain-write sequence is identical to the
+synchronous path; only the schedule changes. Every stage completion is
+journaled (`pipeline_stage` events; simnet SIM109 audits per-task
+monotonicity) and persisted to the sqlite checkpoint (`pipeline_state`
+rows, written only AFTER the stage's side effect landed), so a
+crash-restart resumes mid-pipeline: a re-solved task whose recorded CID
+matches skips the pin/commit work that already happened.
+
+Every stage buffer is bounded — CONC302 is enforced for this file: an
+unbounded queue would hide a slow consumer instead of exerting
+backpressure on the dispatcher.
+
+Mesh transparency (docs/multichip.md): the executor never looks inside
+a device payload, so sharded solves ride the same stages unchanged —
+`runner.dispatch` places the batch with its NamedShardings and queues
+the GSPMD program (still async, so depth-k prefetch overlaps exactly as
+on one chip), and `runner.finalize` performs the fully-replicated
+gather in canonical order before encoding. mesh=None and any mesh
+layout therefore share this schedule byte-for-byte.
+"""
+# detlint: enforce[CONC302]
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from dataclasses import dataclass
+
+from arbius_tpu_torch.l0.cid import cid_hex, cid_of_solution_files
+from arbius_tpu_torch.node.solver import _check_declared, chunk_items
+from arbius_tpu_torch.obs import span
+
+log = logging.getLogger("arbius.pipeline")
+
+# per-task lifecycle order; SIM109 audits that a task's journaled ranks
+# never regress inside one node life
+STAGE_RANK = {"solve": 0, "encode": 1, "pin": 2, "commit": 3, "reveal": 4}
+
+
+@dataclass
+class _Chunk:
+    idx: int
+    bucket: int             # index of the bucket this chunk came from
+    model: object
+    entries: list           # [(Job, hydrated)] — real tasks only
+    items: list             # [(hydrated, seed)] padded to canonical_batch
+    real: int
+    t_start: int = 0        # chain time at dispatch (latency metric)
+    dev_seconds: float = 0.0
+    payload: tuple | None = None   # inline mode: device result held here
+
+
+def _encode_chunk(model, payload, real: int) -> list[tuple[str, dict]]:
+    """Encode-stage body: device result → [(cid_hex, files)] per real
+    item. Pure in (model, payload) — safe on any worker thread, and
+    byte-identical to the serial path's finalize→CID sequence."""
+    kind, value = payload
+    if kind == "dev":
+        files_list = model.runner.finalize(value, real)
+    else:
+        files_list = value[:real]
+    out = []
+    for files in files_list:
+        files = _check_declared(model, files)
+        out.append((cid_hex(cid_of_solution_files(files)), files))
+    return out
+
+
+class SolvePipeline:
+    """One node's staged executor. Driven from the tick thread
+    (`run()`); only the encode pool runs on worker threads, and those
+    touch nothing but their bounded input queue and the condition-
+    guarded results map — chain, db, and journal writes all stay on the
+    tick thread, in task order."""
+
+    def __init__(self, node, cfg):
+        self.node = node
+        self.cfg = cfg
+        reg = node.obs.registry
+        self._c_idle = node._c_idle   # shared with the serial path's A/B
+        self._c_stalls = reg.counter(
+            "arbius_pipeline_stalls_total",
+            "Times a pipeline stage blocked its producer, by stage",
+            labelnames=("stage",))
+        self._h_stage = reg.histogram(
+            "arbius_pipeline_stage_seconds",
+            "Wall seconds per pipeline stage unit (device=dispatch call "
+            "per chunk, encode=transfer+codec+CID per chunk, network="
+            "pin+commit+reveal per task)", labelnames=("stage",))
+        self._g_depth = reg.gauge(
+            "arbius_pipeline_queue_depth",
+            "Items currently inside each pipeline stage buffer",
+            labelnames=("stage",))
+        self._infer_left: dict = {}
+        self._infer_start: dict = {}
+        self._infer_ok: set = set()
+        self._commit_left: dict = {}
+        self._commit_acc: dict = {}
+        self._bucket_keys: dict = {}
+        self._bucket_h0: dict = {}
+        self._bucket_n: dict = {}
+        self._cv = threading.Condition()
+        # (generation, chunk idx) -> (elapsed, result); guarded by
+        # self._cv. The generation token fences off results a worker
+        # finishes AFTER a crash aborted its run — without it, the next
+        # run's chunk 0 could consume the dead run's bytes.
+        self._results: dict[tuple, object] = {}
+        self._gen = 0
+        # device→encode hand-off, bounded at depth: a stalled encode
+        # pool must block the dispatcher, not buffer device results
+        self._encode_q: queue.Queue = queue.Queue(maxsize=max(1, cfg.depth))
+        self._workers = [
+            threading.Thread(target=self._encode_worker, daemon=True,
+                             name=f"solvepipe-encode-{i}")
+            for i in range(cfg.encode_workers)]
+        for t in self._workers:
+            t.start()
+
+    def shutdown(self) -> None:
+        """Stop the encode pool (sentinel per worker). Idempotent; the
+        node's close() calls this."""
+        for _ in self._workers:
+            self._encode_q.put(None)
+        for t in self._workers:
+            t.join(timeout=5.0)
+        self._workers = []
+
+    # -- encode pool (worker threads) -------------------------------------
+    def _encode_worker(self) -> None:
+        while True:
+            item = self._encode_q.get()
+            if item is None:
+                return
+            key, model, payload, real = item
+            # detlint: allow[DET101] obs stage timing; never reaches solve bytes
+            t0 = time.perf_counter()
+            try:
+                out = _encode_chunk(model, payload, real)
+            except BaseException as e:  # noqa: BLE001 — a worker that
+                # dies WITHOUT posting a result would wedge the tick
+                # thread in _consume's cv.wait forever; every death,
+                # kill-class included, must surface as a chunk failure
+                out = e if isinstance(e, Exception) else RuntimeError(
+                    f"encode worker died: {type(e).__name__}: {e}")
+            # detlint: allow[DET101] obs stage timing; never reaches solve bytes
+            elapsed = time.perf_counter() - t0
+            with self._cv:
+                self._results[key] = (elapsed, out)
+                self._cv.notify_all()
+
+    # -- the driver (tick thread) -----------------------------------------
+    def run(self, buckets: list) -> int:
+        """Drive one tick's solve buckets through the staged schedule.
+        `buckets` is [(model, [(Job, hydrated), ...], bucket_key)] in
+        PACK order — the scheduler's output (node/sched.py) feeds the
+        device stage in the order it chose; returns the number of jobs
+        completed."""
+        chunks = self._plan(buckets)
+        self._gen += 1
+        with self._cv:
+            # purge anything a dead run's workers finished late
+            self._results.clear()
+        # arbius_stage_seconds{infer} is observed once per BUCKET as a
+        # WALL window from the bucket's first dispatch to its last
+        # chunk leaving encode — the serial path's granularity and
+        # meaning (_solve_bucket times one bucket dispatch as one
+        # sample), so the profitability gate's p50 cost estimate reads
+        # the same signal whichever schedule runs. (Summing per-chunk
+        # spans instead would double-count device wait that concurrent
+        # encode workers block on together.)
+        self._infer_left = {}      # bucket -> chunks not yet consumed
+        self._infer_start = {}     # bucket -> wall stamp of 1st dispatch
+        self._infer_ok = set()     # buckets with >= 1 successful chunk
+        # stage=commit mirrors the serial path too: one sample per
+        # bucket (the summed network tail of its tasks), not per task —
+        # NodeMetrics' p50/p95 must not shift with the schedule
+        self._commit_left = {}     # bucket -> tasks not yet drained
+        self._commit_acc = {}      # bucket -> summed network seconds
+        for ch in chunks:
+            self._infer_left[ch.bucket] = \
+                self._infer_left.get(ch.bucket, 0) + 1
+            self._commit_left[ch.bucket] = \
+                self._commit_left.get(ch.bucket, 0) + ch.real
+        # bucket -> real task count, frozen before the drains decrement
+        # (the cost tag needs it when the last chunk leaves encode)
+        self._bucket_n = dict(self._commit_left)
+        done = 0
+        backlog: list = []    # network-stage items, strict task order
+        inflight: list = []   # dispatched chunks not yet consumed
+        i = 0
+        try:
+            while i < len(chunks) or inflight or backlog:
+                # 1. fill the device window
+                while i < len(chunks) and len(inflight) < self.cfg.depth:
+                    ch = chunks[i]
+                    i += 1
+                    if self._device_stage(ch):
+                        inflight.append(ch)
+                    else:
+                        self._bucket_chunk_done(ch.bucket)
+                self._set_depths(len(inflight), len(backlog))
+                # 2. consume the oldest chunk's encode result
+                if inflight:
+                    ch = inflight.pop(0)
+                    res = self._consume(ch)
+                    if isinstance(res, Exception):
+                        self._fail_chunk(ch, res)
+                        continue
+                    for (job, _), (cid, files) in zip(ch.entries, res):
+                        taskid = job.data["taskid"]
+                        self._stage_event(taskid, "encode", job.id,
+                                          cid=cid)
+                        backlog.append((job, taskid, cid, files,
+                                        ch.t_start, ch.bucket))
+                    # 3. backpressure: drain the backlog down to its
+                    #    bound now, while the chip still holds the
+                    #    window's remaining chunks — after the append,
+                    #    so the bound is a true ceiling on held bytes
+                    while len(backlog) > self.cfg.max_inflight_pins:
+                        self._c_stalls.inc(stage="network")
+                        done += self._network_stage(backlog.pop(0))
+                elif backlog:
+                    # nothing on the chip and nothing left to dispatch:
+                    # this tail drain is true chip idle time
+                    # detlint: allow[DET101] obs idle accounting only
+                    t0 = time.perf_counter()
+                    while backlog:
+                        done += self._network_stage(backlog.pop(0))
+                    # detlint: allow[DET101] obs idle accounting only
+                    self._c_idle.inc(time.perf_counter() - t0)
+        finally:
+            self._set_depths(0, 0)
+        return done
+
+    def _plan(self, buckets: list) -> list[_Chunk]:
+        b = max(1, self.node.config.canonical_batch)
+        chunks: list[_Chunk] = []
+        self._bucket_keys: dict[int, tuple] = {}
+        # one hydrated input per bucket — the perfscope card bind's
+        # cache_tag join key (node._observe_infer), same element
+        # bucket_disk_warm uses
+        self._bucket_h0: dict[int, dict] = {}
+        for bi, (model, entries, key) in enumerate(buckets):
+            self._bucket_keys[bi] = key
+            if entries:
+                self._bucket_h0[bi] = entries[0][1]
+            items = [(h, h["seed"]) for _, h in entries]
+            for ci, (padded, real) in enumerate(chunk_items(items, b)):
+                chunks.append(_Chunk(
+                    idx=len(chunks), bucket=bi, model=model,
+                    entries=entries[ci * b:ci * b + real],
+                    items=padded, real=real))
+        return chunks
+
+    def _device_stage(self, ch: _Chunk) -> bool:
+        """Dispatch one chunk. Pipelined runners (dispatch/finalize)
+        queue the XLA program and return; plain runners compute here.
+        Returns False when the chunk failed (its jobs quarantined)."""
+        ch.t_start = self.node.chain.now
+        # detlint: allow[DET101] obs stage timing; never reaches solve bytes
+        t0 = time.perf_counter()
+        self._infer_start.setdefault(ch.bucket, t0)
+        runner = ch.model.runner
+        try:
+            with self.node._maybe_profile(), \
+                    span("solve.dispatch", n=ch.real, batch=len(ch.items)):
+                dispatch = getattr(runner, "dispatch", None)
+                finalize = getattr(runner, "finalize", None)
+                if dispatch is not None and finalize is not None:
+                    payload = ("dev", dispatch(ch.items))
+                else:
+                    run_batch = getattr(runner, "run_batch", None)
+                    if run_batch is not None and len(ch.items) > 1:
+                        payload = ("files", run_batch(ch.items))
+                    else:
+                        payload = ("files", [runner(h, s)
+                                             for h, s in ch.items[:ch.real]])
+        except Exception as e:  # noqa: BLE001 — chunk-level quarantine
+            log.warning("pipeline device stage failed: %r", e)
+            self._fail_chunk(ch, e)
+            return False
+        # detlint: allow[DET101] obs stage timing; never reaches solve bytes
+        ch.dev_seconds = time.perf_counter() - t0
+        self._h_stage.observe(ch.dev_seconds, stage="device")
+        # dispatch succeeded ⇒ the bucket's executable is compiled —
+        # feed the packer's warm-preference set (docs/scheduler.md);
+        # state lock: a /debug snapshot may iterate the warm set
+        with self.node.state_lock:
+            self.node._sched.mark_warm(self._bucket_keys[ch.bucket])
+        for job, _ in ch.entries:
+            self._stage_event(job.data["taskid"], "solve", job.id)
+        if self._workers:
+            self._encode_q.put(((self._gen, ch.idx), ch.model, payload,
+                                ch.real))
+        else:
+            ch.payload = payload
+        return True
+
+    def _consume(self, ch: _Chunk):
+        """Block until chunk `ch`'s encode result is ready; returns the
+        [(cid, files)] list or the exception the stage raised. Also
+        feeds `arbius_stage_seconds{infer}` so the profitability gate
+        and NodeMetrics see the same cost signal as the serial path."""
+        if not self._workers:
+            # detlint: allow[DET101] obs stage timing; never reaches solve bytes
+            t0 = time.perf_counter()
+            try:
+                out = _encode_chunk(ch.model, ch.payload, ch.real)
+            except Exception as e:  # noqa: BLE001 — reported per chunk
+                out = e
+            # detlint: allow[DET101] obs stage timing; never reaches solve bytes
+            elapsed = time.perf_counter() - t0
+        else:
+            key = (self._gen, ch.idx)
+            with self._cv:
+                if key not in self._results:
+                    self._c_stalls.inc(stage="encode")
+                while key not in self._results:
+                    self._cv.wait()
+                elapsed, out = self._results.pop(key)
+        self._h_stage.observe(elapsed, stage="encode")
+        self._bucket_chunk_done(ch.bucket, ok=not isinstance(out, Exception))
+        return out
+
+    def _network_stage(self, item: tuple) -> int:
+        """Pin → commit → reveal one task on the tick thread, resuming
+        past stages a previous life already landed (same CID only)."""
+        job, taskid, cid, files, t_start, bucket = item
+        node = self.node
+        # detlint: allow[DET101] obs stage timing; never reaches solve bytes
+        t0 = time.perf_counter()
+        state = node.db.get_pipeline_stage(taskid)
+        resumed = STAGE_RANK.get(state[0], -1) \
+            if state is not None and state[1] == cid else -1
+        try:
+            with span("solve.task", taskid=taskid, cid=cid):
+                if resumed >= STAGE_RANK["pin"]:
+                    # the bytes were pinned before the crash; re-pinning
+                    # would only re-run the 60 s-timeout network call
+                    self._stage_event(taskid, "pin", job.id, cid=cid,
+                                      resumed=True)
+                else:
+                    node._store_solution(taskid, cid, files)
+                    node.db.set_pipeline_stage(taskid, "pin", cid)
+                    self._stage_event(taskid, "pin", job.id, cid=cid)
+                node._commit_reveal(
+                    taskid, cid, t_start,
+                    skip_commit=resumed >= STAGE_RANK["commit"],
+                    progress=lambda stage, resumed=False:
+                        self._progress(job.id, taskid, cid, stage, resumed))
+            node.db.clear_pipeline_state(taskid)
+            node.db.delete_job(job.id)
+            done = 1
+        except Exception as e:  # noqa: BLE001 — per-task quarantine
+            log.warning("pipeline network stage failed for %s: %r",
+                        taskid, e)
+            node._fail_job(job, e)
+            done = 0
+        # detlint: allow[DET101] obs stage timing; never reaches solve bytes
+        elapsed = time.perf_counter() - t0
+        self._h_stage.observe(elapsed, stage="network")
+        self._commit_acc[bucket] = \
+            self._commit_acc.get(bucket, 0.0) + elapsed
+        self._commit_left[bucket] -= 1
+        if self._commit_left[bucket] == 0:
+            node._h_stage.observe(self._commit_acc[bucket], stage="commit")
+        return done
+
+    def _progress(self, jobid: int, taskid: str, cid: str, stage: str,
+                  resumed: bool) -> None:
+        """_commit_reveal's checkpoint hook: the chain accepted the
+        stage's write (or a previous life had), so record it."""
+        node = self.node
+        if not resumed:
+            node.db.set_pipeline_stage(taskid, stage, cid)
+        self._stage_event(taskid, stage, jobid, cid=cid,
+                          **({"resumed": True} if resumed else {}))
+
+    def _bucket_chunk_done(self, bucket: int, ok: bool = False) -> None:
+        """One bucket ⇒ one infer sample: the wall window from the
+        bucket's first dispatch to its last chunk leaving encode,
+        emitted only if at least one chunk succeeded (an all-failed
+        bucket emits nothing, like the serial path)."""
+        self._infer_left[bucket] -= 1
+        if ok:
+            self._infer_ok.add(bucket)
+        if self._infer_left[bucket] == 0 and bucket in self._infer_ok:
+            self._infer_ok.discard(bucket)
+            # cost-tagged (and perfscope-bound) exactly like the serial
+            # path, so the learned model and the card read one signal
+            # whichever schedule ran
+            self.node._observe_infer(
+                self._bucket_keys[bucket], self._bucket_n[bucket],
+                # detlint: allow[DET101] obs stage timing; never reaches solve bytes
+                time.perf_counter() - self._infer_start[bucket],
+                hydrated=self._bucket_h0.get(bucket))
+
+    # -- bookkeeping -------------------------------------------------------
+    def _stage_event(self, taskid: str, stage: str, jobid: int,
+                      **fields) -> None:
+        """Journal one stage completion. `jobid` identifies the solve
+        ATTEMPT: replayed chain events legitimately queue duplicate
+        solve jobs for an already-solved task, and each attempt walks
+        the stages from the top — SIM109's monotonicity is per
+        (task, attempt), reset by a crash boundary."""
+        self.node.obs.event("pipeline_stage", taskid=taskid, stage=stage,
+                            jobid=jobid, rank=STAGE_RANK[stage], **fields)
+
+    def _fail_chunk(self, ch: _Chunk, e: Exception) -> None:
+        for job, _ in ch.entries:
+            self.node._fail_job(job, e)
+        # its tasks never reach the network stage — keep the per-bucket
+        # commit-sample accounting converging
+        self._commit_left[ch.bucket] -= ch.real
+        if self._commit_left[ch.bucket] == 0 and \
+                self._commit_acc.get(ch.bucket, 0.0) > 0.0:
+            self.node._h_stage.observe(self._commit_acc[ch.bucket],
+                                       stage="commit")
+
+    def _set_depths(self, device: int, network: int) -> None:
+        self._g_depth.set(device, stage="device")
+        self._g_depth.set(self._encode_q.qsize(), stage="encode")
+        self._g_depth.set(network, stage="network")

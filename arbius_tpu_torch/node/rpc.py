@@ -1,0 +1,727 @@
+"""Operator control RPC — job injection + introspection + metrics.
+
+Mirror of the reference's express API (`miner/src/rpc.ts:15-95`:
+/api/jobs/queue, /api/jobs/get, /api/jobs/delete) plus the observability
+surface the reference lacks (SURVEY.md §5, docs/observability.md):
+`/api/metrics` (JSON view, derived from the obs registry), `/metrics`
+(Prometheus text exposition), and `/debug/trace` + `/debug/journal`
+(the obs journal's span trees and raw flight-recorder events). stdlib
+http.server, localhost-bound — this is an operator-only surface,
+exactly like the reference's.
+
+View dispatch is wrapped: a view that raises returns a 500 JSON error
+(and increments `arbius_rpc_errors_total`) instead of killing the
+request thread silently mid-response.
+"""
+from __future__ import annotations
+
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
+
+# GET /debug/costmodel row bound (docs/text-serving.md): a sequence-
+# bucketed family's (prompt × decode × sampler) space is unbounded, and
+# the perfscope join below the cap is O(rows × cards) — the view caps
+# its payload and reports `rows_omitted` instead of growing forever
+# (tools/costmodel.py RENDER_CAP is the CLI-side twin)
+COSTMODEL_ROW_CAP = 64
+
+
+class ControlRPC:
+    def __init__(self, node, host: str = "127.0.0.1", port: int = 0):
+        self.node = node
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet; node logging covers it
+                pass
+
+            def _send(self, code: int, payload):
+                body = json.dumps(payload, sort_keys=True).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _send_html(self, html: str):
+                body = html.encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/html; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _send_text(self, text: str, content_type: str):
+                body = text.encode()
+                self.send_response(200)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                try:
+                    self._route_get()
+                except (BrokenPipeError, ConnectionError):
+                    pass  # client went away mid-response; nothing to send
+                except Exception as e:  # noqa: BLE001 — view bug must
+                    # answer 500, not die silently (and be counted)
+                    outer._view_error(self, e)
+
+            def do_POST(self):
+                try:
+                    self._route_post()
+                except (BrokenPipeError, ConnectionError):
+                    pass
+                except Exception as e:  # noqa: BLE001
+                    outer._view_error(self, e)
+
+            def _route_get(self):
+                if self.path == "/" or self.path == "/explorer":
+                    self._send_html(outer.explorer_html())
+                elif self.path.startswith("/task/"):
+                    self._send_html(outer.task_html(self.path[len("/task/"):]))
+                elif self.path.startswith("/history/"):
+                    self._send_html(
+                        outer.history_html(self.path[len("/history/"):]))
+                elif self.path == "/api/tasks":
+                    self._send(200, outer.recent_tasks())
+                elif self.path == "/api/models":
+                    self._send(200, outer.models_view())
+                elif self.path == "/models":
+                    self._send_html(outer.models_html())
+                elif self.path == "/api/jobs/get":
+                    jobs = outer.node.db.get_jobs(now=2**62)
+                    self._send(200, [{
+                        "id": j.id, "method": j.method, "priority": j.priority,
+                        "waituntil": j.waituntil, "concurrent": j.concurrent,
+                        "data": j.data} for j in jobs])
+                elif self.path == "/api/metrics":
+                    self._send(200, outer.metrics())
+                elif self.path == "/metrics":
+                    # Prometheus text exposition (0.0.4) straight from the
+                    # obs registry — the scrape surface for dashboards
+                    self._send_text(outer.prometheus_text(),
+                                    "text/plain; version=0.0.4; "
+                                    "charset=utf-8")
+                elif self.path.startswith("/debug/"):
+                    code, payload = outer.debug_view(self.path)
+                    self._send(code, payload)
+                elif self.path == "/api/chain/info":
+                    self._send(200, outer.chain_info())
+                elif self.path.startswith("/ipfs/"):
+                    outer.serve_ipfs(self)
+                else:
+                    self._send(404, {"error": "not found"})
+
+            def _route_post(self):
+                length = int(self.headers.get("Content-Length", 0))
+                try:
+                    body = json.loads(self.rfile.read(length) or b"{}")
+                except json.JSONDecodeError:
+                    self._send(400, {"error": "bad json"})
+                    return
+                if self.path == "/api/jobs/queue":
+                    try:
+                        # detlint: allow[CONC405] operator job injection
+                        # is this endpoint's purpose: NodeDB._lock
+                        # serializes the write and the handler thread's
+                        # commit fsyncs BEFORE the client is acked
+                        # (per-thread batch windows, db.py) — nothing
+                        # is lost if the daemon dies after the ack
+                        job_id = outer.node.db.queue_job(
+                            body["method"], body.get("data", {}),
+                            priority=int(body.get("priority", 0)),
+                            waituntil=int(body.get("waituntil", 0)),
+                            concurrent=bool(body.get("concurrent", False)))
+                    except KeyError:
+                        self._send(400, {"error": "method required"})
+                        return
+                    self._send(200, {"id": job_id})
+                elif self.path in ("/api/tasks/submit", "/api/tx/raw"):
+                    fn = (outer.submit_task if self.path == "/api/tasks/submit"
+                          else outer.submit_raw_tx)
+                    try:
+                        result = fn(body)
+                    except Exception as e:  # noqa: BLE001 — a form submit
+                        # must always get a JSON response: bad input
+                        # (KeyError/ValueError/TypeError), chain reverts
+                        # (EngineError), endpoint failures (ChainRpcError),
+                        # bad raw hex, LocalChain without a raw-tx surface
+                        self._send(400, {"error": str(e) or repr(e)})
+                        return
+                    self._send(200, result)
+                elif self.path == "/api/jobs/delete":
+                    try:
+                        # detlint: allow[CONC405] operator job deletion,
+                        # same discipline as /api/jobs/queue above:
+                        # lock-guarded, fsynced before the ack
+                        outer.node.db.delete_job(int(body["id"]))
+                    except (KeyError, ValueError):
+                        self._send(400, {"error": "id required"})
+                        return
+                    self._send(200, {"ok": True})
+                else:
+                    self._send(404, {"error": "not found"})
+
+        self.server = ThreadingHTTPServer((host, port), Handler)
+        self.port = self.server.server_address[1]
+        self._thread: threading.Thread | None = None
+
+    _CONTENT_TYPES = {".png": "image/png", ".jpg": "image/jpeg",
+                      ".mp4": "video/mp4", ".txt": "text/plain",
+                      ".json": "application/json"}
+
+    def serve_ipfs(self, handler) -> None:
+        """Gateway: /ipfs/<cid> (blob or dir listing), /ipfs/<cid>/<name>.
+
+        The data-availability half of the solve path: the CIDs the node
+        commits on-chain resolve to bytes here (the reference relies on
+        an external IPFS daemon/Pinata for this, ipfs.ts:28-114)."""
+        store = getattr(self.node, "store", None)
+        if store is None:
+            handler._send(404, {"error": "no content store configured"})
+            return
+        parts = [p for p in handler.path.split("/") if p][1:]  # drop 'ipfs'
+        try:
+            if len(parts) == 1:
+                data = store.get_file(parts[0])
+                if data is None:
+                    manifest = store.get_dir(parts[0])
+                    if manifest is None:
+                        handler._send(404, {"error": "cid not stored"})
+                    else:
+                        handler._send(200, {"cid": parts[0],
+                                            "files": manifest})
+                    return
+                name = ""
+            elif len(parts) == 2:
+                data = store.resolve(parts[0], parts[1])
+                if data is None:
+                    handler._send(404, {"error": "path not stored"})
+                    return
+                name = parts[1]
+            else:
+                handler._send(404, {"error": "bad ipfs path"})
+                return
+        except ValueError as e:
+            handler._send(400, {"error": str(e)})
+            return
+        ext = "." + name.rsplit(".", 1)[-1] if "." in name else ""
+        ctype = self._CONTENT_TYPES.get(ext, "application/octet-stream")
+        handler.send_response(200)
+        handler.send_header("Content-Type", ctype)
+        handler.send_header("Content-Length", str(len(data)))
+        handler.end_headers()
+        handler.wfile.write(data)
+
+    def recent_tasks(self, limit: int = 50) -> list[dict]:
+        """Task/solution view — the explorer's data source (the reference
+        website's explorer + task/[taskid] pages, `website/src/pages`)."""
+        return [self._row_to_view(r)
+                for r in self.node.db.recent_tasks(limit)]
+
+    def submit_task(self, body: dict) -> dict:
+        """Dapp generate-page parity (`website/src/pages/generate.tsx`):
+        hydrate-validate the input against the model's template and submit
+        the task through the node's chain facade (the node's wallet signs
+        when the facade is RpcChain)."""
+        from arbius_tpu_torch.templates.engine import hydrate_input
+
+        model_id = body["model"]
+        m = self.node.registry.get(model_id)
+        if m is None:
+            raise ValueError(f"unknown model {model_id}")
+        raw = body.get("input", {})
+        if not isinstance(raw, dict):
+            raise ValueError("input must be an object")
+        hydrate_input(dict(raw), m.template)  # reject before paying the fee
+        fee = int(body.get("fee") or 0)  # str or int; wad > 2^53 arrives str
+        # canonical form: sorted keys + tight separators, so semantically
+        # identical inputs submit identical bytes (and identical CIDs)
+        # regardless of the JSON key order the frontend happened to post
+        input_bytes = json.dumps(raw, separators=(",", ":"),
+                                 sort_keys=True).encode()
+        self.node.chain.ensure_fee_allowance(fee)  # engine pulls the fee
+        taskid = self.node.chain.submit_task(0, self.node.chain.address,
+                                             model_id, fee, input_bytes)
+        return {"taskid": taskid or None, "submitted": True}
+
+    def chain_info(self) -> dict:
+        """What an EIP-1193 browser wallet needs to build a submitTask tx
+        itself (generate.tsx's wagmi flow without a JS toolchain): the
+        engine address and the function selector. The wallet signs AND
+        sends through its own provider — the node never sees the key."""
+        from arbius_tpu_torch.chain.rpc_client import ENGINE_FNS, selector
+
+        sig, _ = ENGINE_FNS["submitTask"]
+        chain = self.node.chain
+        engine = getattr(getattr(chain, "client", None), "engine_address",
+                         None)
+        if engine is None:
+            eng = getattr(chain, "engine", None)
+            engine = getattr(eng, "ADDRESS", None) if eng is not None \
+                else None
+        return {
+            "engine": engine,
+            "submit_task_signature": sig,
+            "submit_task_selector": "0x" + selector(sig).hex(),
+        }
+
+    def submit_raw_tx(self, body: dict) -> dict:
+        """USER-wallet task submission (the other half of generate.tsx
+        parity): the reference dapp signs with the user's wallet via
+        web3modal/wagmi (`website/src/pages/generate.tsx`); here the dapp
+        posts a user-SIGNED EIP-1559 raw tx and the node forwards it
+        verbatim to its chain endpoint (`eth_sendRawTransaction`) — fee
+        and signature are the user's, never the node's. Requires an
+        RPC-backed chain (RpcChain); an in-process LocalChain has no
+        raw-tx surface to forward to."""
+        raw = body.get("raw")
+        if not isinstance(raw, str) or not raw.startswith("0x"):
+            raise ValueError("raw must be a 0x-hex signed transaction")
+        transport = getattr(getattr(self.node.chain, "client", None),
+                            "transport", None)
+        if transport is None:
+            raise ValueError(
+                "raw-tx passthrough needs an RPC-backed chain (run the "
+                "node against a devnet/live endpoint); the in-process "
+                "LocalChain accepts only node-signed calls")
+        txhash = transport.request("eth_sendRawTransaction", [raw])
+        return {"txhash": txhash, "submitted": True}
+
+    _PAGE_STYLE = (
+        "body{font-family:system-ui;margin:2rem;max-width:70rem}"
+        "table{border-collapse:collapse;width:100%}"
+        "td,th{border:1px solid #ccc;padding:.3rem .5rem;text-align:left}"
+        "code{font-size:.85em}img,video{max-width:100%}"
+        "form{margin:.5rem 0}textarea{width:100%;font-family:monospace}")
+
+    def _task_status(self, t: dict) -> str:
+        return ("invalid" if t["invalid"] else
+                "claimed" if t["claimed"] else
+                "solved" if t["solution_validator"] else "pending")
+
+    def _row_to_view(self, r) -> dict:
+        return {
+            "taskid": r["id"], "model": r["modelid"], "fee": r["fee"],
+            "owner": r["address"], "blocktime": r["blocktime"],
+            "solution_validator": r["validator"], "solution_cid": r["cid"],
+            "claimed": bool(r["claimed"]) if r["claimed"] is not None else None,
+            "invalid": bool(r["inv"]),
+        }
+
+    def task_html(self, taskid: str) -> str:
+        """Task page (`website/src/pages/task/[taskid].tsx` parity):
+        details + hydrated input + outputs rendered by the template's
+        declared `output.type` from the node's /ipfs gateway."""
+        import html as _html
+
+        row = self.node.db.task_view(taskid)
+        if row is None:
+            return (f"<!doctype html><html><body><h1>task not found</h1>"
+                    f"<code>{_html.escape(taskid)}</code></body></html>")
+        sol = self._row_to_view(row)
+        status = self._task_status(sol)
+        inp = self.node.db.get_task_input(taskid)
+        m = self.node.registry.get(row["modelid"])
+        outputs_html = ""
+        cid_hex = sol["solution_cid"] if sol else None
+        if m is not None and cid_hex:
+            try:
+                from arbius_tpu_torch.node.store import cid_b58
+
+                b58 = cid_b58(cid_hex)
+            except ValueError:
+                b58 = None
+            store = getattr(self.node, "store", None)
+            if b58 and store is not None and store.has(b58):
+                parts = []
+                for out in m.template.outputs:
+                    name = _html.escape(out.filename)
+                    src = f"/ipfs/{b58}/{name}"
+                    if out.type == "image":
+                        parts.append(f"<figure><img src='{src}' alt='{name}'>"
+                                     f"<figcaption>{name}</figcaption>"
+                                     "</figure>")
+                    elif out.type == "video":
+                        parts.append(f"<figure><video controls src='{src}'>"
+                                     f"</video><figcaption>{name}"
+                                     "</figcaption></figure>")
+                    else:  # text / audio / unknown: link to the bytes
+                        parts.append(f"<p><a href='{src}'>{name}</a></p>")
+                outputs_html = "<h2>Outputs</h2>" + "".join(parts)
+            elif b58:
+                outputs_html = (f"<h2>Outputs</h2><p>cid <code>{b58}"
+                                "</code> not in local store</p>")
+        input_html = ""
+        if inp:
+            input_html = ("<h2>Input</h2><pre>" + _html.escape(
+                json.dumps(inp, indent=2, sort_keys=True)) + "</pre>")
+        owner = row["address"] or ""
+        val = (sol["solution_validator"] or "") if sol else ""
+        return (
+            "<!doctype html><html><head><meta charset='utf-8'>"
+            f"<title>task {taskid[:10]}…</title>"
+            f"<style>{self._PAGE_STYLE}</style></head><body>"
+            f"<p><a href='/'>← explorer</a></p>"
+            f"<h1>Task <code>{_html.escape(taskid)}</code></h1><ul>"
+            f"<li>status: <b>{status}</b></li>"
+            f"<li>model: <code>{_html.escape(row['modelid'] or '')}</code></li>"
+            f"<li>fee: {row['fee']}</li>"
+            f"<li>owner: <a href='/history/{_html.escape(owner)}'>"
+            f"<code>{_html.escape(owner)}</code></a></li>"
+            + (f"<li>solver: <a href='/history/{_html.escape(val)}'>"
+               f"<code>{_html.escape(val)}</code></a></li>" if val else "")
+            + f"</ul>{input_html}{outputs_html}</body></html>")
+
+    def history_html(self, address: str) -> str:
+        """Address history (`website/src/pages/history/[address].tsx`
+        parity): tasks submitted by or solved by the address."""
+        import html as _html
+
+        addr = _html.escape(address)
+        rows = [self._row_to_view(r)
+                for r in self.node.db.tasks_by_address(address)]
+        body = "".join(
+            f"<tr><td><a href='/task/{t['taskid']}'>"
+            f"<code>{t['taskid'][:18]}…</code></a></td>"
+            f"<td>{'submitted' if (t['owner'] or '').lower() == address.lower() else 'solved'}</td>"
+            f"<td>{t['fee']}</td>"
+            f"<td>{self._task_status(t)}</td></tr>"
+            for t in rows)
+        return (
+            "<!doctype html><html><head><meta charset='utf-8'>"
+            f"<title>history {addr[:10]}…</title>"
+            f"<style>{self._PAGE_STYLE}</style></head><body>"
+            "<p><a href='/'>← explorer</a></p>"
+            f"<h1>History <code>{addr}</code></h1>"
+            f"<p>{len(rows)} task(s)</p>"
+            "<table><tr><th>task</th><th>role</th><th>fee</th>"
+            f"<th>status</th></tr>{body}</table></body></html>")
+
+    def models_view(self) -> list[dict]:
+        """Registered-model inventory (the reference dapp's models page,
+        `website/src/pages/models`): id, template meta, filters, golden."""
+        out = []
+        for mid in self.node.registry.ids():
+            m = self.node.registry.get(mid)
+            out.append({
+                "id": mid,
+                "template_title": m.template.title,
+                "outputs": [o.filename for o in m.template.outputs],
+                "min_fee": str(m.min_fee),
+                "allowed_owners": list(m.allowed_owners),
+                "has_golden": m.golden is not None,
+            })
+        return out
+
+    def models_html(self) -> str:
+        import html as _html
+
+        rows = "".join(
+            f"<tr><td><code>{m['id'][:22]}…</code></td>"
+            f"<td>{_html.escape(m['template_title'])}</td>"
+            f"<td>{_html.escape(', '.join(m['outputs']))}</td>"
+            f"<td>{m['min_fee']}</td>"
+            f"<td>{'✓' if m['has_golden'] else ''}</td></tr>"
+            for m in self.models_view())
+        return (
+            "<!doctype html><html><head><meta charset='utf-8'>"
+            "<title>models — arbius-tpu node</title>"
+            f"<style>{self._PAGE_STYLE}</style></head><body>"
+            "<h1>Registered models</h1>"
+            "<table><tr><th>id</th><th>template</th><th>outputs</th>"
+            f"<th>min fee</th><th>golden</th></tr>{rows}"
+            "</table><p><a href='/'>← explorer</a></p></body></html>")
+
+    def explorer_html(self) -> str:
+        """Single-page explorer (L5 parity: the reference ships a Next.js
+        dapp; the node serves an equivalent local view of tasks,
+        solutions, and miner health with zero build tooling)."""
+        m = self.metrics()
+
+        def cid_cell(cid_hex: str | None) -> str:
+            if not cid_hex:
+                return ""
+            try:
+                from arbius_tpu_torch.node.store import cid_b58
+
+                b58 = cid_b58(cid_hex)
+            except ValueError:
+                return f"<code>{cid_hex[:20]}</code>"
+            if getattr(self.node, "store", None) and self.node.store.has(b58):
+                return f"<a href='/ipfs/{b58}'><code>{b58[:16]}…</code></a>"
+            return f"<code>{b58[:16]}…</code>"
+
+        rows = "".join(
+            f"<tr><td><a href='/task/{t['taskid']}'>"
+            f"<code>{t['taskid'][:18]}…</code></a></td>"
+            f"<td><code>{(t['model'] or '')[:14]}…</code></td>"
+            f"<td>{t['fee']}</td>"
+            f"<td>{self._task_status(t)}</td>"
+            f"<td>{cid_cell(t['solution_cid'])}</td></tr>"
+            for t in self.recent_tasks())
+        stats = "".join(f"<li>{k}: <b>{v}</b></li>" for k, v in m.items())
+        options = "".join(f"<option value='{mid}'>{mid[:18]}…</option>"
+                          for mid in self.node.registry.ids())
+        addr = self.node.chain.address
+        # generate.tsx parity: template-driven submit form, posted to
+        # /api/tasks/submit and signed by the node's wallet
+        form = (
+            "<h2>Submit task</h2>"
+            f"<form onsubmit=\"fetch('/api/tasks/submit',{{method:'POST',"
+            "body:JSON.stringify({model:this.model.value,"
+            "fee:this.fee.value||'0',"  # string: wad > 2^53 survives JSON
+            "input:JSON.parse(this.input.value)})})"
+            ".then(r=>r.json()).then(j=>{document.getElementById('subres')"
+            ".textContent=JSON.stringify(j);setTimeout(()=>location.reload()"
+            ",800)});return false\">"
+            f"<label>model <select name='model'>{options}</select></label> "
+            "<label>fee (wad) <input name='fee' value='0' size='8'></label>"
+            "<br><textarea name='input' rows='4'>"
+            '{"prompt": "arbius test cat", "negative_prompt": ""}'
+            "</textarea><br><button>submit</button> "
+            "<span id='subres'></span></form>"
+            # user-wallet path: paste a tx signed with the user's key
+            # (`cli task-submit --sign-only` or any EIP-1559 signer); the
+            # node only forwards it — generate.tsx's wagmi flow without a
+            # JS wallet stack
+            "<h3>…or submit a user-signed raw tx</h3>"
+            "<form onsubmit=\"fetch('/api/tx/raw',{method:'POST',"
+            "body:JSON.stringify({raw:this.raw.value.trim()})})"
+            ".then(r=>r.json()).then(j=>{document.getElementById('rawres')"
+            ".textContent=JSON.stringify(j)});return false\">"
+            "<textarea name='raw' rows='2' "
+            "placeholder='0x02… signed EIP-1559 transaction'></textarea>"
+            "<br><button>forward</button> <span id='rawres'></span></form>"
+            # EIP-1193 path: the page itself ABI-encodes submitTask and
+            # hands the tx to window.ethereum (MetaMask-class) — the
+            # wallet signs and sends through ITS provider; the node never
+            # sees the key. generate.tsx's wagmi/web3modal flow
+            # (website/src/pages/generate.tsx) without a JS toolchain.
+            "<h3>…or sign in your browser wallet (EIP-1193)</h3>"
+            "<script>async function mmSubmit(f){try{"
+            "if(!window.ethereum)throw Error('no EIP-1193 wallet "
+            "(window.ethereum) detected');"
+            "const info=await fetch('/api/chain/info').then(r=>r.json());"
+            "if(!info.engine)throw Error('node has no engine address');"
+            "const acc=(await ethereum.request({method:'eth_requestAccounts'"
+            "}))[0];"
+            "const hx=(v,n)=>BigInt(v).toString(16).padStart(n*2,'0');"
+            "const input=new TextEncoder().encode(JSON.stringify("
+            "JSON.parse(f.input.value)));"
+            "const ih=Array.from(input).map(b=>b.toString(16).padStart(2,'0'"
+            ")).join('');"
+            "const data=info.submit_task_selector"
+            "+hx(0,32)"                                    # version uint8
+            "+acc.slice(2).toLowerCase().padStart(64,'0')"  # owner
+            "+f.model.value.slice(2).padStart(64,'0')"      # model bytes32
+            "+hx(f.fee.value||'0',32)"                      # fee uint256
+            "+hx(0xa0,32)"                                  # bytes offset
+            "+hx(input.length,32)"
+            "+ih.padEnd(Math.ceil(ih.length/64)*64,'0');"
+            "const tx=await ethereum.request({method:'eth_sendTransaction',"
+            "params:[{from:acc,to:info.engine,data:data}]});"
+            "document.getElementById('mmres').textContent='tx: '+tx;"
+            "}catch(e){document.getElementById('mmres').textContent="
+            "'error: '+(e.message||e)}return false}</script>"
+            "<form onsubmit='return mmSubmit(this)'>"
+            f"<label>model <select name='model'>{options}</select></label> "
+            "<label>fee (wad) <input name='fee' value='0' size='8'></label>"
+            "<br><textarea name='input' rows='2'>"
+            '{"prompt": "arbius test cat", "negative_prompt": ""}'
+            "</textarea><br><button>sign in wallet</button> "
+            "<span id='mmres'></span></form>")
+        return (
+            "<!doctype html><html><head><meta charset='utf-8'>"
+            "<title>arbius-tpu node</title>"
+            f"<style>{self._PAGE_STYLE}</style></head><body>"
+            f"<h1>arbius-tpu node <small><a href='/history/{addr}'>"
+            f"{addr}</a> · <a href='/models'>models</a></small></h1>"
+            f"<h2>Metrics</h2><ul>{stats}</ul>{form}"
+            "<h2>Recent tasks</h2><table><tr><th>task</th><th>model</th>"
+            f"<th>fee</th><th>status</th><th>solution cid</th></tr>{rows}"
+            "</table></body></html>")
+
+    def metrics(self) -> dict:
+        """JSON metrics view — same keys as pre-obs, now DERIVED from the
+        obs registry (one source of truth; percentiles come from the
+        histograms' rolling recent-sample windows)."""
+        m = self.node.metrics
+        reg = self.node.obs.registry
+        lat = reg.histogram("arbius_solve_latency_chain_seconds")
+        stage = reg.histogram("arbius_stage_seconds",
+                              labelnames=("stage",))
+        return {
+            "tasks_seen": m.tasks_seen,
+            "tasks_invalid": m.tasks_invalid,
+            "solutions_submitted": m.solutions_submitted,
+            "solutions_claimed": m.solutions_claimed,
+            "contestations_submitted": m.contestations_submitted,
+            "votes_cast": m.votes_cast,
+            "vote_finishes": m.vote_finishes,
+            "tasks_unprofitable": m.tasks_unprofitable,
+            "queue_depth": self.node.db.job_count(),
+            "solve_latency_p50": lat.percentile(0.5),
+            "solve_latency_p95": lat.percentile(0.95),
+            "stage_infer_p50_s": stage.percentile(0.5, stage="infer"),
+            "stage_commit_p50_s": stage.percentile(0.5, stage="commit"),
+        }
+
+    def prometheus_text(self) -> str:
+        return self.node.obs.registry.render()
+
+    def debug_view(self, path: str) -> tuple[int, object]:
+        """GET /debug/trace?taskid=0x… → the task's span trees;
+        GET /debug/journal[?limit=N&kind=K&taskid=0x…] → raw journal
+        events; GET /debug/costmodel → the learned cost table + packer
+        state; GET /debug/alerts → the healthwatch engine's snapshot
+        (docs/healthwatch.md)."""
+        parts = urlsplit(path)
+        q = parse_qs(parts.query)
+        if parts.path == "/debug/costmodel":
+            # the scheduler's whole pricing state in one view
+            # (docs/scheduler.md): fitted rows, packer policy + warm
+            # set + last pack order, and the static fallback the gate
+            # degrades to. Under the node's state lock: this handler
+            # runs on a request thread while the tick thread refits the
+            # cost table and feeds the warm set (docs/concurrency.md —
+            # the CONC401 finding this view used to be).
+            cfg = self.node.config
+            scope = self.node.obs.perfscope
+            with self.node.state_lock:
+                cost_model = self.node.costmodel.snapshot()
+                view = {
+                    "cost_model": cost_model,
+                    "sched": self.node._sched.snapshot(),
+                    # ground truth for the packer's warm preference:
+                    # every executable-cache tag that actually compiled
+                    # this life — audit `sched.warm` against it.
+                    # obs.jit_warm is published copy-on-write by
+                    # jit_cache_get (the tick thread never takes this
+                    # lock there), so this read iterates an immutable
+                    # snapshot, not a mutating set
+                    "jit_warm": sorted(self.node.obs.jit_warm),
+                    # cross-life warm set (docs/compile-cache.md): tags
+                    # the boot scan found serialized in the AOT cache —
+                    # the packer's disk-warm half; empty when aot_cache
+                    # is disabled
+                    "aot_disk_warm": sorted(self.node._disk_warm_tags),
+                    "layout": self.node.solve_layout,
+                    # per-model precision modes (docs/quantization.md):
+                    # every cost row above is keyed per mode, and this
+                    # is the mode table the node buckets/prices with
+                    "modes": {mid: self.node.solve_modes[mid]
+                              for mid in sorted(self.node.solve_modes)},
+                    "min_fee_per_second": str(cfg.min_fee_per_second),
+                    "static_seconds": self.node._static_solve_seconds(),
+                }
+            if len(cost_model["rows"]) > COSTMODEL_ROW_CAP:
+                # cap BEFORE the perfscope join — the join iterates
+                # exactly the rows that ship
+                cost_model["rows_omitted"] = (len(cost_model["rows"])
+                                              - COSTMODEL_ROW_CAP)
+                cost_model["rows"] = cost_model["rows"][:COSTMODEL_ROW_CAP]
+            if scope is not None:
+                # perfscope join (docs/perfscope.md) OUTSIDE the state
+                # lock: the snapshot above already copied the rows into
+                # fresh dicts, and PerfScope serializes under its own
+                # leaf lock — the tick thread's pack must not wait on
+                # O(rows × cards) JSON work. Every fitted row carries
+                # its card's static facts — fee/flop and utilization
+                # sit NEXT TO the learned chip-seconds, through the
+                # shared (model, bucket, layout, mode) tag.
+                for row in cost_model["rows"]:
+                    cj = scope.card_json_for(row["model"], row["bucket"],
+                                             row["layout"], row["mode"])
+                    if cj is None:
+                        continue
+                    perf = {k: cj[k] for k in (
+                        "flops", "bytes_accessed", "roofline_seconds",
+                        "drift_ratio", "padding_waste",
+                        "amortized_compile_seconds")}
+                    bucket_s = row["chip_seconds"] * max(1, cj["batch"])
+                    if cj["flops"] > 0:
+                        # wad charged per Gflop at the fitted price —
+                        # the cost-per-token discipline of the Gemma
+                        # serving comparison (PAPERS.md), at bucket
+                        # granularity
+                        perf["fee_per_gflop"] = round(
+                            bucket_s * cfg.min_fee_per_second
+                            / (cj["flops"] / 1e9), 6)
+                    if bucket_s > 0 and cj["roofline_seconds"]:
+                        # fraction of the roofline the fitted price
+                        # says this bucket achieves
+                        perf["utilization"] = round(
+                            cj["roofline_seconds"] / bucket_s, 6)
+                    row["perf"] = perf
+            view["perfscope"] = scope.snapshot() \
+                if scope is not None else None
+            return 200, view
+        if parts.path == "/debug/trace":
+            taskid = (q.get("taskid") or [""])[0]
+            if not taskid:
+                return 400, {"error": "taskid query parameter required"}
+            trace = self.node.obs.task_trace(taskid)
+            # the task's NON-span lifecycle events inline, in journal
+            # (seq) order: pipeline_stage completions, gate/cost
+            # decisions, dedupes, drift — one ordered view instead of
+            # journal-grep archaeology (docs/perfscope.md); spans keep
+            # their tree shape above
+            events = [e for e in self.node.obs.journal.events(
+                taskid=taskid) if e.get("kind") != "span"]
+            return 200, {"taskid": taskid, "spans": trace,
+                         "events": events,
+                         "journal_dropped": self.node.obs.journal.dropped}
+        if parts.path == "/debug/journal":
+            try:
+                limit = int((q.get("limit") or ["200"])[0])
+            except ValueError:
+                return 400, {"error": "limit must be an integer"}
+            # `kind` and `taskid` mirror EventJournal.events() exactly
+            # (taskid matches an event's taskid field or membership in
+            # its taskids list, the /debug/trace semantics); filters
+            # apply BEFORE the limit, order stays journal (seq) order —
+            # test-pinned (tests/test_healthwatch.py)
+            kind = (q.get("kind") or [None])[0]
+            taskid = (q.get("taskid") or [None])[0]
+            events = self.node.obs.journal.events(kind=kind,
+                                                  taskid=taskid,
+                                                  limit=limit)
+            return 200, {"events": events,
+                         "capacity": self.node.obs.journal.capacity,
+                         "dropped": self.node.obs.journal.dropped}
+        if parts.path == "/debug/alerts":
+            # the healthwatch engine's whole state in one view
+            # (docs/healthwatch.md): per-rule state machine positions,
+            # streaks, transition counts, live detail strings
+            hw = self.node.healthwatch
+            if hw is None:
+                return 200, {"enabled": False, "alerts": []}
+            return 200, hw.snapshot()
+        return 404, {"error": "not found"}
+
+    def _view_error(self, handler, e: Exception) -> None:
+        """A failing view answers 500 JSON and is counted — never a
+        silently-dead request thread (pre-obs behavior)."""
+        obs = getattr(self.node, "obs", None)
+        if obs is not None:
+            obs.registry.counter(
+                "arbius_rpc_errors_total",
+                "Control-RPC views that raised (answered as 500)").inc()
+        try:
+            handler._send(500, {"error": f"{type(e).__name__}: {e}"})
+        except Exception:  # noqa: BLE001 — headers already sent / socket
+            pass           # gone: nothing more we can do for this request
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()

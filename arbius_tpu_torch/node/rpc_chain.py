@@ -1,0 +1,401 @@
+"""RpcChain — the live-chain backend of the node's chain facade.
+
+Implements the same surface as `LocalChain` (node/chain_client.py) over
+`EngineRpcClient`, so `MinerNode` mines against a real JSON-RPC endpoint
+exactly as it mines against the in-process engine. This is the seam the
+reference wires in `miner/src/blockchain.ts:22-36` (provider + wallet +
+contracts) plus the five event subscriptions at
+`miner/src/index.ts:1030-1060` — realized here as explicit log polling
+(`poll_events`), which the node calls each tick: WebSocket push is an
+operational nicety, not a semantic one, and polling survives RPC
+endpoints that only speak HTTP.
+
+State mapping: Solidity mapping getters return zero-structs for missing
+keys; this facade converts those back to `None` so node logic stays
+backend-agnostic. Reverts surface as `EngineError` (same type LocalChain
+raises) so retry/contest handling is identical on both backends.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Callable
+
+from arbius_tpu_torch.chain.devnet import EVENT_ABI, EVENT_TOPIC0
+from arbius_tpu_torch.chain.engine import Contestation, Event, Solution, Task
+from arbius_tpu_torch.chain.rpc_client import (
+    ENGINE_FNS,
+    EngineRpcClient,
+    RpcError,
+)
+from arbius_tpu_torch.l0.abi import abi_decode
+from arbius_tpu_torch.l0.commitment import generate_commitment
+import re as _re
+
+from arbius_tpu_torch.obs import span
+
+log = logging.getLogger("arbius.rpc_chain")
+
+_ZERO_ADDR = "0x" + "00" * 20
+_MAX_UINT256 = (1 << 256) - 1
+
+# topic0 bytes -> (event name, field spec) for log decoding
+_TOPIC_TO_EVENT = {("0x" + t.hex()): (name, EVENT_ABI[name][1])
+                   for name, t in EVENT_TOPIC0.items()}
+
+
+class ChainRpcError(RuntimeError):
+    """Transport-level failure (endpoint down, timeout) — retryable."""
+
+
+# the devnet's exact rejection shape (chain/devnet.py raises
+# `nonce {got} != expected {want}`) — the structured two-number parse
+_NONCE_CONFLICT_RE = _re.compile(r"\bnonce (\d+) != expected (\d+)\b")
+# geth-family nonce rejections ('nonce too low: next nonce 3, tx nonce
+# 5', 'nonce too high', 'replacement transaction underpriced',
+# 'already known') carry no uniform number pair — recognized as
+# conflicts by their fixed phrases, still MESSAGE-field-only
+_NONCE_PHRASES = ("nonce too low", "nonce too high",
+                  "replacement transaction underpriced",
+                  "already known")
+
+
+def _error_message(e: BaseException) -> str:
+    """The endpoint's error MESSAGE field when one exists (empty string
+    included — an empty message must NOT fall back to the stringified
+    payload, whose `data` field can echo calldata), else str(e)."""
+    msg = getattr(e, "message", None)
+    return str(e) if msg is None else msg
+
+
+def nonce_conflict(e: BaseException) -> tuple[int, int] | None:
+    """Structured nonce-conflict parse: (got, expected) when the error's
+    MESSAGE field carries the devnet `nonce N != expected M` shape,
+    else None. Only the message object is inspected — never the
+    stringified payload: a submitTask input that merely contains the
+    word "nonce" must not be classified as a tx race. Geth-family
+    conflicts without the number pair classify via `is_nonce_error`."""
+    m = _NONCE_CONFLICT_RE.search(_error_message(e))
+    if m is None:
+        return None
+    return int(m.group(1)), int(m.group(2))
+
+
+def is_nonce_error(e: BaseException) -> bool:
+    """True for any recognized nonce-conflict message shape: the
+    devnet's structured pair or a geth-family phrase."""
+    if nonce_conflict(e) is not None:
+        return True
+    msg = _error_message(e)
+    return any(p in msg for p in _NONCE_PHRASES)
+
+
+def _engine_error(e: RpcError):
+    """Map a revert to the facade's EngineError; re-raise transport
+    faults. Nonce conflicts (another tx from this wallet landed first —
+    the fleet shared-wallet race, docs/fleet.md) classify as
+    EngineError too: the state-dependent retry logic re-reads chain
+    state exactly as it does for a revert, instead of blind-retrying a
+    tx whose nonce can never land."""
+    from arbius_tpu_torch.chain import EngineError
+
+    msg = _error_message(e)
+    if "revert" in msg or is_nonce_error(e):
+        return EngineError(msg)
+    return ChainRpcError(str(e))
+
+
+class RpcChain:
+    """LocalChain-compatible facade over a JSON-RPC endpoint."""
+
+    def __init__(self, client: EngineRpcClient, token_address: str,
+                 start_block: int = 0, validator_address: str | None = None):
+        self.client = client
+        self.address = client.wallet.address.lower()
+        # delegated-validator seam (blockchain.ts:44-67): stake reads and
+        # deposits target this address; defaults to the signing wallet
+        self.validator_address = (validator_address or self.address).lower()
+        self.token_address = token_address.lower()
+        self._subs: list[Callable] = []
+        self._next_block = start_block
+        self._task_txhash: dict[str, str] = {}
+        self._now: int | None = None
+        # stale-event detection (docs/healthwatch.md): identities of
+        # recently dispatched logs, kept for _STALE_KEEP_BLOCKS behind
+        # the poll cursor — a log at/below the window floor (delayed
+        # delivery, shallow reorg) or duplicated in-window (replay) is
+        # counted into arbius_chain_events_stale_total. Counting only:
+        # dispatch semantics are untouched (handlers keep deduping via
+        # INSERT OR IGNORE), so bytes never depend on this.
+        self._seen_logs: dict[tuple, int] = {}
+
+    # -- chain state -------------------------------------------------------
+    @property
+    def now(self) -> int:
+        """Latest block timestamp; cached, refreshed by poll_events()."""
+        if self._now is None:
+            self._now = self.client.block_timestamp()
+        return self._now
+
+    def version(self) -> int:
+        return self._view("version()", [], [], ["uint256"])[0]
+
+    def subscribe(self, fn: Callable) -> None:
+        self._subs.append(fn)
+
+    # -- event polling (index.ts:1030-1060 as pull) ------------------------
+    def poll_events(self) -> int:
+        """Fetch + dispatch logs since the last poll. Returns event count."""
+        latest = self.client.block_number()
+        self._now = self.client.block_timestamp()
+        if latest < self._next_block:
+            return 0
+        logs = self.client.transport.request("eth_getLogs", [{
+            "address": self.client.engine_address,
+            "fromBlock": hex(self._next_block),
+            "toBlock": hex(latest)}])
+        stale = self._count_stale(logs, self._next_block, latest)
+        if stale:
+            from arbius_tpu_torch.obs import current_obs
+
+            obs = current_obs()
+            if obs is not None:
+                obs.registry.counter(
+                    "arbius_chain_events_stale_total",
+                    "Chain events delivered at/below the poll window "
+                    "floor or duplicated in-window — delayed "
+                    "deliveries, replays, shallow reorgs; the "
+                    "healthwatch chain_replay signal "
+                    "(docs/healthwatch.md)").inc(stale)
+        n = 0
+        for lg in logs:
+            ev = self._decode_log(lg)
+            if ev is None:
+                continue
+            if ev.name == "TaskSubmitted":
+                self._task_txhash["0x" + ev.args["id"].hex()] = \
+                    lg.get("transactionHash", "")
+            for fn in self._subs:
+                fn(ev)
+            n += 1
+        # advance only after a fully dispatched batch: a subscriber raise
+        # re-delivers the range next poll (handlers dedupe via the db's
+        # INSERT OR IGNORE) instead of silently dropping events
+        self._next_block = latest + 1
+        return n
+
+    # blocks of log identities retained for replay detection — deeper
+    # than any shallow reorg this facade is meant to observe
+    _STALE_KEEP_BLOCKS = 64
+
+    def _count_stale(self, logs: list, floor: int, latest: int) -> int:
+        """How many of this poll's logs are STALE: block below the
+        window floor (a delayed/reorg-replayed delivery — the range
+        was already consumed), or an identity this facade already
+        dispatched (an in-window replay, incl. a range re-poll after a
+        subscriber raise). Pure bookkeeping over the log list."""
+        stale = 0
+        for lg in logs:
+            try:
+                block = int(lg.get("blockNumber", "0x0"), 16)
+                ident = (block, lg.get("transactionHash", ""),
+                         tuple(lg.get("topics") or ()),
+                         lg.get("data", ""))
+            except (TypeError, ValueError):
+                continue  # undecodable log: _decode_log's problem
+            if block < floor or ident in self._seen_logs:
+                stale += 1
+            self._seen_logs[ident] = max(
+                block, self._seen_logs.get(ident, 0))
+        cutoff = latest - self._STALE_KEEP_BLOCKS
+        if cutoff > 0:
+            self._seen_logs = {k: b for k, b in self._seen_logs.items()
+                               if b >= cutoff}
+        return stale
+
+    def _decode_log(self, lg: dict) -> Event | None:
+        spec = _TOPIC_TO_EVENT.get(lg["topics"][0])
+        if spec is None:
+            return None
+        name, fields = spec
+        args = {}
+        topic_i = 1
+        data_fields = [(a, t) for a, t, indexed in fields if not indexed]
+        data = bytes.fromhex(lg["data"][2:]) if lg.get("data") else b""
+        data_values = abi_decode([t for _, t in data_fields], data) \
+            if data_fields else []
+        di = 0
+        for arg, typ, indexed in fields:
+            if indexed:
+                word = bytes.fromhex(lg["topics"][topic_i][2:])
+                args[arg] = abi_decode([typ], word)[0]
+                topic_i += 1
+            else:
+                args[arg] = data_values[di]
+                di += 1
+        return Event(name, args)
+
+    # -- reads -------------------------------------------------------------
+    def _view(self, signature: str, types: list, values: list,
+              ret_types: list):
+        try:
+            raw = self.client.eth_call(signature, types, values)
+        except RpcError as e:
+            raise _engine_error(e) from None
+        return abi_decode(ret_types, raw)
+
+    def get_task(self, taskid: str) -> Task | None:
+        model, fee, owner, blocktime, version, cid = self._view(
+            "tasks(bytes32)", ["bytes32"], [taskid],
+            ["bytes32", "uint256", "address", "uint64", "uint8", "bytes"])
+        # missing-key sentinel: a real task always has a nonzero model
+        # (EngineV1.sol:688 requires it); blocktime CAN be 0 at genesis
+        if model == b"\x00" * 32:
+            return None
+        return Task(model=model, fee=fee, owner=owner, blocktime=blocktime,
+                    version=version, cid=cid)
+
+    def get_task_input_bytes(self, taskid: str) -> bytes | None:
+        """The task input rides the submitTask calldata, not chain state —
+        fetch the submitting tx and ABI-decode it (index.ts:151-155)."""
+        txhash = self._task_txhash.get(taskid)
+        if not txhash:
+            return None
+        tx = self.client.get_transaction(txhash)
+        if tx is None:
+            return None
+        data = bytes.fromhex(tx["input"][2:])
+        sig, types = ENGINE_FNS["submitTask"]
+        from arbius_tpu_torch.chain.rpc_client import selector
+
+        if data[:4] != selector(sig):
+            return None
+        return abi_decode(types, data[4:])[4]
+
+    def get_solution(self, taskid: str) -> Solution | None:
+        validator, blocktime, claimed, cid = self._view(
+            "solutions(bytes32)", ["bytes32"], [taskid],
+            ["address", "uint64", "bool", "bytes"])
+        if validator == _ZERO_ADDR:
+            return None
+        return Solution(validator=validator, blocktime=blocktime,
+                        claimed=claimed, cid=cid)
+
+    def get_contestation(self, taskid: str) -> Contestation | None:
+        validator, blocktime, fsi, slash = self._view(
+            "contestations(bytes32)", ["bytes32"], [taskid],
+            ["address", "uint64", "uint32", "uint256"])
+        if validator == _ZERO_ADDR:
+            return None
+        return Contestation(validator=validator, blocktime=blocktime,
+                            finish_start_index=fsi, slash_amount=slash)
+
+    def validator_staked(self) -> int:
+        return self._view("validators(address)", ["address"],
+                          [self.validator_address],
+                          ["uint256", "uint256", "address"])[0]
+
+    def validator_withdraw_pending(self) -> int:
+        return self._view("validatorWithdrawPendingAmount(address)",
+                          ["address"], [self.validator_address], ["uint256"])[0]
+
+    def get_validator_minimum(self) -> int:
+        return self._view("getValidatorMinimum()", [], [], ["uint256"])[0]
+
+    def min_claim_solution_time(self) -> int:
+        return self._view("minClaimSolutionTime()", [], [], ["uint256"])[0]
+
+    def min_contestation_vote_period(self) -> int:
+        return self._view("minContestationVotePeriodTime()", [], [],
+                          ["uint256"])[0]
+
+    def token_balance(self) -> int:
+        try:
+            raw = self.client.eth_call_to(
+                self.token_address, "balanceOf(address)", ["address"],
+                [self.address])
+        except RpcError as e:
+            raise _engine_error(e) from None
+        return abi_decode(["uint256"], raw)[0]
+
+    def token_allowance(self, spender: str) -> int:
+        try:
+            raw = self.client.eth_call_to(
+                self.token_address, "allowance(address,address)",
+                ["address", "address"], [self.address, spender])
+        except RpcError as e:
+            raise _engine_error(e) from None
+        return abi_decode(["uint256"], raw)[0]
+
+    def validator_can_vote(self, taskid: str) -> int:
+        return self._view("validatorCanVote(address,bytes32)",
+                          ["address", "bytes32"], [self.address, taskid],
+                          ["uint256"])[0]
+
+    def contestation_voted(self, taskid: str) -> bool:
+        return self._view("contestationVoted(bytes32,address)",
+                          ["bytes32", "address"], [taskid, self.address],
+                          ["bool"])[0]
+
+    # -- transactions ------------------------------------------------------
+    def _send(self, fn: str, values: list) -> str:
+        # span names are snake_case (LocalChain parity — one taxonomy for
+        # local and production nodes, docs/observability.md)
+        op = _re.sub(r"(?<=[a-z0-9])([A-Z])", r"_\1", fn).lower()
+        with span("chain." + op):
+            try:
+                return self.client.send(fn, values)
+            except RpcError as e:
+                raise _engine_error(e) from None
+
+    def ensure_fee_allowance(self, fee: int) -> None:
+        """Approve the engine to pull `fee` before submitTask — same
+        approve-then-act pattern as staking (blockchain.ts:60-67)."""
+        if fee and self.token_allowance(self.client.engine_address) < fee:
+            try:
+                self.client.send_to(
+                    self.token_address, "approve(address,uint256)",
+                    ["address", "uint256"],
+                    [self.client.engine_address, fee])
+            except RpcError as e:
+                raise _engine_error(e) from None
+
+    def submit_task(self, version: int, owner: str, model: str, fee: int,
+                    input_: bytes) -> str:
+        self._send("submitTask", [version, owner, model, fee, input_])
+        # the task id is assigned on-chain (hash includes prevhash); the
+        # poll loop picks it up from the TaskSubmitted event
+        return ""
+
+    def signal_commitment(self, commitment: bytes) -> None:
+        self._send("signalCommitment", [commitment])
+
+    def submit_solution(self, taskid: str, cid: str) -> None:
+        self._send("submitSolution", [taskid, cid])
+
+    def claim_solution(self, taskid: str) -> None:
+        self._send("claimSolution", [taskid])
+
+    def submit_contestation(self, taskid: str) -> None:
+        self._send("submitContestation", [taskid])
+
+    def vote_on_contestation(self, taskid: str, yea: bool) -> None:
+        self._send("voteOnContestation", [taskid, yea])
+
+    def contestation_vote_finish(self, taskid: str, amnt: int) -> None:
+        self._send("contestationVoteFinish", [taskid, amnt])
+
+    def validator_deposit(self, amount: int) -> None:
+        """Approve-then-deposit (blockchain.ts:60-67: the reference approves
+        from its CLI; the node here self-heals a missing allowance)."""
+        engine = self.client.engine_address
+        if self.token_allowance(engine) < amount:
+            try:
+                self.client.send_to(
+                    self.token_address, "approve(address,uint256)",
+                    ["address", "uint256"], [engine, _MAX_UINT256])
+            except RpcError as e:
+                raise _engine_error(e) from None
+        self._send("validatorDeposit", [self.validator_address, amount])
+
+    def generate_commitment(self, taskid: str, cid: str) -> bytes:
+        return generate_commitment(self.address, taskid, cid)

@@ -54,10 +54,24 @@ its own lines with timings:
      launches per chunk, per route as in phase 4), and claims them; each
      on-chain CID equals the fresh model's for the same hydrated input
      and taskid2seed(engine taskid) in another chunk grouping.
+  7. node-run: the quickstart's two terminals. The port's DevnetNode
+     serves a funded chain over HTTP on 127.0.0.1; `python -m
+     arbius_tpu_torch.cli node-run` mines it as a separate process with
+     MiningConfig.example.json's node settings (staged pipeline on,
+     depth 2, 2 encode workers), booting with the committed golden
+     (phase 6's where the build differs). Phase 4's six inputs go on
+     chain as the user's signed transactions; the node commits and
+     reveals them, the devnet's clock advances, the node claims them.
+     Each revealed CID must equal phase 6's fresh model's direct solve,
+     GET /metrics must show 6 solutions submitted, and the node's flash
+     launches must be phase 4's per chunk, per route. Prints the host
+     seconds from the first tick to the last reveal and claim, the
+     stage seconds, the seconds per signed transaction and sol/h beside
+     phases 4 and 6.
 
 Any failed check raises and the exit code is not 0. The last lines are
-the card, a `kernels` JSON line (with each route's launches in phase 4
-and in phase 6) and `{"ok": true, "device": {...}}`.
+the card, a `kernels` JSON line (with each route's launches in phase 4,
+phase 6 and phase 7) and `{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, where CUDA is not available.
 """
 from __future__ import annotations
@@ -553,18 +567,308 @@ def phase_node(torch, flash, expected, todo, main_wall) -> dict:
     stages = node.metrics.stage_seconds
     infer, commit = sum(stages["infer"]), sum(stages["commit"])
     card = rec["build"]["card"] + ", " + rec["build"]["power_limit"]
+    node_sol_h = CANONICAL_BATCH * n_chunks * 3600 / infer
     print(f"node: mined {len(tids)} tasks in {n_chunks} chunks, "
           f"{mine_s:.2f} s host time from the first tick to the last "
           f"reveal; infer {infer:.3f} s, commit {commit:.4f} s "
           f"(arbius_stage_seconds sums); "
-          f"{CANONICAL_BATCH * n_chunks * 3600 / infer:.1f} sol/h at full "
+          f"{node_sol_h:.1f} sol/h at full "
           f"batches (phase 4: "
           f"{CANONICAL_BATCH * n_chunks * 3600 / main_wall:.1f}, the fresh "
           f"model's solve_cid_batch of the same tasks here "
           f"{CANONICAL_BATCH * n_chunks * 3600 / direct_s:.1f}); claimed "
           f"{len(tids)}, +{rise / WAD:g} AIUS; {card}", flush=True)
     node.close()
+    # phase 7 boots from the committed golden where this is its build,
+    # else from the one recorded above
+    return {"launches": launches, "fresh": fresh, "sol_h": node_sol_h,
+            "golden": (committed if build == built else rec)["golden"],
+            "golden_source": GOLDEN_FILE if build == built else
+            "re-recorded in phase 6 (another build)"}
+
+
+def phase_node_run(torch, flash, expected, todo, fresh, golden,
+                   golden_source: str, sol_h: dict) -> dict:
+    """Phase 7: `node-run` as its own process against the port's devnet
+    on localhost (`node_run_world`), mining `todo`'s inputs with the
+    staged pipeline on, booting with `golden`. Each revealed CID must
+    equal `fresh`'s direct solve of (input, taskid2seed(taskid)); the
+    node's flash launches while mining must be phase 4's per chunk, per
+    route, and its boot self-test's those of one chunk. Returns the
+    mining launches."""
+    import tempfile
+
+    from arbius_tpu_torch.l0 import taskid2seed
+    from arbius_tpu_torch.node import solve_cid_batch
+    from arbius_tpu_torch.utils import card_info
+
+    inputs = [h for _, h, _ in todo]
+    with tempfile.TemporaryDirectory() as work:
+        got = node_run_world(inputs, device="cuda", tiny=False,
+                             golden=golden, workdir=work)
+    summary, metrics = got["summary"], got["metrics"]
+    submitted = _metric_sum(metrics, "arbius_solutions_submitted_total")
+    check(submitted == len(inputs), f"GET /metrics shows "
+          f"arbius_solutions_submitted_total {submitted}")
+    check(summary["solutions_claimed"] == len(inputs)
+          and summary["failed_jobs"] == 0, f"node-run summary {summary}")
+    n_chunks = -(-len(inputs) // CANONICAL_BATCH)
+    launches, boot = summary["flash_launches"], summary["flash_launches_boot"]
+    check(boot == expected, f"node-run self-test launches {boot}, "
+          f"expected one chunk's {expected}")
+    check(launches == {r: n * n_chunks for r, n in expected.items()},
+          f"node-run mining launches {launches}, expected {expected} x "
+          f"{n_chunks} chunks")
+    items = [(h, taskid2seed(tid)) for h, tid in zip(inputs, got["tids"])]
+    direct = [cid for cid, _ in solve_cid_batch(
+        fresh, items, canonical_batch=CANONICAL_BATCH)]
+    for tid, cid, want in zip(got["tids"], got["cids"], direct):
+        check(cid == want, f"task {tid}: revealed {cid} != direct {want}")
+    print("node-run: revealed CIDs " + " ".join(got["cids"])
+          + " equal the direct solve's; self-test passed with golden "
+          + golden["cid"] + f" ({golden_source}); flash launches per "
+          f"route, self-test {boot}, mining {launches}", flush=True)
+
+    stage = {s: _metric_sum(metrics, "arbius_stage_seconds_sum", stage=s)
+             for s in ("infer", "commit")}
+    pipe = {s: _metric_sum(metrics, "arbius_pipeline_stage_seconds_sum",
+                           stage=s) for s in ("device", "encode", "network")}
+    sign = sign_seconds()
+    n = len(inputs)
+    sol_h = {**sol_h,
+             "node-run, first tick to last reveal":
+                 n * 3600 / got["to_last_reveal_s"],
+             "node-run, infer at full batches":
+                 CANONICAL_BATCH * n_chunks * 3600 / stage["infer"]}
+    print(f"node-run: {n} tasks mined and claimed over JSON-RPC in "
+          f"{summary['ticks']} ticks; spawn to first tick "
+          f"{got['boot_s']:.2f} s (imports, model, kernels, self-test); "
+          f"first tick to last reveal {got['to_last_reveal_s']:.2f} s, "
+          f"to last claim {got['to_last_claim_s']:.2f} s (host clock)",
+          flush=True)
+    print("node-run: arbius_stage_seconds sums "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in stage.items())
+          + "; arbius_pipeline_stage_seconds sums "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in pipe.items())
+          + f" (depth 2, 2 encode workers; {n_chunks} chunks)", flush=True)
+    print("node-run: seconds per signed transaction (pure-Python "
+          "secp256k1, sign only) "
+          + ", ".join(f"{k} {v:.5f}" for k, v in sign.items())
+          + f"; submitTask sign + HTTP + apply {got['submit_s']:.5f}",
+          flush=True)
+    print("node-run: sol/h " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in sol_h.items())
+          + f"; {card_info()}", flush=True)
     return launches
+
+
+NODE_RUN_KEYS = ("0x" + "11" * 32, "0x" + "22" * 32)   # miner, user
+CHAIN_ID = 31337
+NODE_RUN_MAX_TICKS = 20_000   # node-run ends itself if SIGTERM never comes
+
+
+def _read_lines(stream, sink: list) -> None:
+    for line in stream:
+        sink.append(line.rstrip("\n"))
+
+
+def _wait(cond, what: str, proc, timeout: float, poll: float = 0.05):
+    """Poll `cond` until true; fail if `proc` exits or time runs out."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(proc.poll() is None, f"node-run exited ({proc.returncode}) "
+              f"while waiting for {what}")
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(poll)
+
+
+def _metric_sum(text: str, name: str, **labels) -> float:
+    """Sum of the Prometheus samples `name` whose labels include
+    `labels` (a histogram's series differ by their cost tag)."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    total = 0.0
+    for line in text.splitlines():
+        head, _, value = line.rpartition(" ")
+        if head.split("{")[0] == name and all(w in head for w in want):
+            total += float(value)
+    return total
+
+
+def sign_seconds(reps: int = 5) -> dict[str, float]:
+    """Host seconds to sign one EIP-1559 transaction (the pure-Python
+    secp256k1 of chain/wallet.py) for each write the miner makes per
+    task: commit, reveal and claim."""
+    from arbius_tpu_torch.chain.rlp import Eip1559Tx
+    from arbius_tpu_torch.chain.rpc_client import ENGINE_FNS, selector
+    from arbius_tpu_torch.chain.wallet import Wallet
+    from arbius_tpu_torch.l0.abi import abi_encode
+
+    wallet = Wallet.from_hex(NODE_RUN_KEYS[0])
+    word, cid = b"\x5a" * 32, bytes.fromhex("1220" + "ab" * 32)
+    calls = {"commit": ("signalCommitment", [word]),
+             "reveal": ("submitSolution", [word, cid]),
+             "claim": ("claimSolution", [word])}
+    out = {}
+    for stage, (fn, args) in calls.items():
+        sig, types = ENGINE_FNS[fn]
+        tx = Eip1559Tx(chain_id=CHAIN_ID, nonce=7,
+                       max_priority_fee_per_gas=1, max_fee_per_gas=10**9,
+                       gas_limit=500_000, to="0x" + "e1" * 20, value=0,
+                       data=selector(sig) + abi_encode(types, args))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tx.sign(wallet)
+        out[stage] = (time.perf_counter() - t0) / reps
+    return out
+
+
+def node_run_world(inputs: list[dict], *, device: str, tiny: bool,
+                   golden: dict | None, workdir: str,
+                   timeout: float = 900.0,
+                   settings: dict | None = None) -> dict:
+    """The quickstart's two terminals (phase 7): the port's DevnetNode
+    serves a funded chain with a registered anythingv3 model on
+    127.0.0.1 at a free port; `python -m arbius_tpu_torch.cli node-run`
+    mines it as a separate process with MiningConfig.example.json's node
+    settings (the staged pipeline on), an ephemeral control RPC, no
+    compile cache and the model `device`/`tiny`/`golden` (`settings`
+    overrides the config's other keys). The user's
+    wallet submits `inputs` as signed transactions; once the node has
+    revealed them all the devnet's clock advances past the claim window;
+    once they are claimed, GET /metrics is read from the node's control
+    RPC and the node is stopped with SIGTERM, which must end it with
+    exit code 0 and its summary line. Returns the taskids, the revealed
+    CIDs, the metrics text, the summary and the host timings."""
+    import os
+    import signal
+    import subprocess
+    import threading
+    import urllib.request
+
+    from arbius_tpu_torch.chain import WAD, Engine, TokenLedger
+    from arbius_tpu_torch.chain.devnet import DevnetNode
+    from arbius_tpu_torch.chain.rpc_client import (
+        EngineRpcClient,
+        JsonRpcTransport,
+    )
+    from arbius_tpu_torch.chain.wallet import Wallet
+    from arbius_tpu_torch.node.rpc_chain import RpcChain
+    from arbius_tpu_torch.templates import load_template_bytes
+
+    root = pathlib.Path(__file__).resolve().parent
+    miner, user = (Wallet.from_hex(k) for k in NODE_RUN_KEYS)
+    tok = TokenLedger()
+    eng = Engine(tok, start_time=1000)
+    tok.mint(Engine.ADDRESS, 600_000 * WAD)
+    for w in (miner, user):
+        tok.mint(w.address, 1000 * WAD)
+    mid = "0x" + eng.register_model(
+        user.address, user.address, 0,
+        load_template_bytes("anythingv3")).hex()
+    events: dict[str, list] = {"TaskSubmitted": [], "SolutionSubmitted": [],
+                               "SolutionClaimed": []}
+
+    def on_event(ev):   # runs on a devnet request thread, under its lock
+        if ev.name in events:
+            key = "id" if ev.name == "TaskSubmitted" else "task"
+            events[ev.name].append(("0x" + ev.args[key].hex(), time.time()))
+
+    eng.subscribe(on_event)
+    dev = DevnetNode(eng, chain_id=CHAIN_ID)
+    server = dev.serve("127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    work = pathlib.Path(workdir)
+    cfg = json.loads((root / "MiningConfig.example.json").read_text())
+    cfg.update(db_path=str(work / "miner.db"), log_path=str(work /
+               "miner.log"), store_dir=str(work / "store"), rpc_port=0,
+               compile_cache_dir=None, models=[{
+                   "id": mid, "template": "anythingv3", "tiny": tiny,
+                   "weights_dtype": "bfloat16", "golden": golden}])
+    cfg.update(settings or {})
+    (work / "config.json").write_text(json.dumps(cfg))
+    (work / "deployment.json").write_text(json.dumps({
+        "rpc_url": url, "engine_address": dev.engine_address,
+        "token_address": dev.token_address, "chain_id": CHAIN_ID}))
+    (work / "miner.key").write_text("0x" + miner.private_key.hex())
+
+    # -- the user's signed submitTask transactions ----------------------------
+    user_chain = RpcChain(EngineRpcClient(JsonRpcTransport(url),
+                                          dev.engine_address, user,
+                                          chain_id=CHAIN_ID),
+                          dev.token_address)
+    user_chain.ensure_fee_allowance(TASK_FEE * WAD * len(inputs))
+    t0 = time.perf_counter()
+    for raw in inputs:
+        user_chain.submit_task(0, user.address, mid, TASK_FEE * WAD,
+                               json.dumps(raw, sort_keys=True).encode())
+    submit_s = (time.perf_counter() - t0) / len(inputs)
+    tids = [t for t, _ in events["TaskSubmitted"]]
+    check(len(tids) == len(inputs), f"{len(tids)} tasks on chain")
+
+    out_lines: list[str] = []
+    err_lines: list[str] = []
+    t_spawn = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "arbius_tpu_torch.cli", "node-run",
+         str(work / "config.json"), "--deployment",
+         str(work / "deployment.json"), "--key-file", str(work / "miner.key"),
+         "--device", device, "--ticks", str(NODE_RUN_MAX_TICKS)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ))
+    readers = [threading.Thread(target=_read_lines, args=(stream, sink),
+                                daemon=True)
+               for stream, sink in ((proc.stdout, out_lines),
+                                    (proc.stderr, err_lines))]
+    for t in readers:
+        t.start()
+    try:
+        prefix = "control RPC + explorer on 127.0.0.1:"
+        _wait(lambda: any(ln.startswith(prefix) for ln in err_lines),
+              "the node's control RPC", proc, timeout)
+        port = int(next(ln for ln in err_lines
+                        if ln.startswith(prefix))[len(prefix):])
+
+        def mine(name):
+            return {t for t, _ in events[name]} >= set(tids)
+
+        _wait(lambda: mine("SolutionSubmitted"), "the reveals", proc,
+              timeout)
+        dev.request("evm_increaseTime", [eng.min_claim_solution_time
+                                         + cfg["claim_delay_buffer"] + 1])
+        dev.request("evm_mine", [])
+        _wait(lambda: mine("SolutionClaimed"), "the claims", proc, timeout)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as resp:
+            metrics = resp.read().decode()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for t in readers:
+            t.join(timeout=10)
+        server.shutdown()
+        server.server_close()
+    check(rc == 0, f"node-run exited {rc}: " + "\n".join(err_lines[-40:]))
+    [summary] = [json.loads(ln)["node_run"] for ln in out_lines
+                 if ln.startswith('{"node_run"')]
+    cids = []
+    for tid in tids:
+        sol = eng.solutions[bytes.fromhex(tid[2:])]
+        check(sol.validator == miner.address.lower() and sol.claimed,
+              f"task {tid}: {sol}")
+        cids.append("0x" + sol.cid.hex())
+    first = summary["first_tick_unix"]
+    return {"tids": tids, "cids": cids, "metrics": metrics,
+            "summary": summary, "submit_s": submit_s,
+            "boot_s": first - t_spawn,
+            "to_last_reveal_s": max(t for _, t in
+                                    events["SolutionSubmitted"]) - first,
+            "to_last_claim_s": max(t for _, t in
+                                   events["SolutionClaimed"]) - first}
 
 
 def main() -> int:
@@ -705,7 +1009,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. node ------------------------------------------------------------
-    node_launches = phase_node(torch, flash, expected, todo, wall)
+    node = phase_node(torch, flash, expected, todo, wall)
+
+    # -- 7. node-run ---------------------------------------------------------
+    node_run_launches = phase_node_run(
+        torch, flash, expected, todo, node["fresh"], node["golden"],
+        node["golden_source"],
+        {"phase 4 direct": len(items) / wall * 3600,
+         "phase 6 LocalChain": node["sol_h"]})
+    node_launches = node["launches"]
+    del node
+    gc.collect()
+    torch.cuda.empty_cache()
 
     tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
     bounds = {"tensor_core_wgmma": tc_bound, "tensor_core": tc_bound,
@@ -725,6 +1040,7 @@ def main() -> int:
             "replaces": "arbius_tpu/ops/flash.py:34",
             "launches": launches[route],
             "launches_node": node_launches[route],
+            "launches_node_run": node_run_launches[route],
             "max_abs_err": max(t["max_abs_err"], t768["max_abs_err"]),
             # times: one 512x512 batch's calls (bf16) at timed_at,
             # summed; see _per_route

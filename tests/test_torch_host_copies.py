@@ -1,7 +1,8 @@
 """The port keeps its own copies of the reference's host layers (L0,
 codecs, templates, tokenizer, diffusion tables, and the node's host
-modules: obs, chain, config, db, store, pinners, retry, scheduler) and
-imports nothing of arbius_tpu; these tests hold each copy's output
+modules: obs, chain, config, db, store, pinners, retry, scheduler, the
+JSON-RPC chain and the staged pipeline) and imports nothing of
+arbius_tpu; these tests hold each copy's output
 byte-equal to its twin's, the files that are copied verbatim byte-equal
 on disk, and the copied modules' text equal to their twins' once
 `arbius_tpu.` reads `arbius_tpu_torch.`."""
@@ -44,22 +45,27 @@ def test_verbatim_copies(copy, original):
 # modules copied whole: only their imports name the port's package
 RENAMED_COPIES = [
     "obs/__init__.py", "obs/journal.py", "obs/registry.py", "obs/trace.py",
-    "chain/engine.py", "chain/fixedpoint.py", "chain/token.py",
+    "chain/__init__.py", "chain/devnet.py", "chain/engine.py",
+    "chain/fixedpoint.py", "chain/governance.py", "chain/l1token.py",
+    "chain/rlp.py", "chain/rpc_client.py", "chain/token.py",
+    "chain/wallet.py",
     "quant/modes.py", "templates/engine.py",
     "node/chain_client.py", "node/costmodel.py", "node/db.py",
-    "node/pinners.py", "node/retry.py", "node/store.py",
+    "node/pinners.py", "node/pipeline.py", "node/retry.py",
+    "node/rpc.py", "node/rpc_chain.py", "node/store.py",
 ]
 
 # twins whose body differs, and why (each module's docstring says how)
 CHANGED_TWINS = {
     "node/node.py": "refuses unported settings at boot; no mesh, AOT "
-                    "cache, pipeline, perfscope or alert engine; "
-                    "self-test at the canonical batch; torch.profiler",
+                    "cache, perfscope or alert engine; self-test at the "
+                    "canonical batch; torch.profiler",
+    "cli.py": "the node verbs only; node-run on --device, paced ticks, "
+              "SIGTERM and an exit summary",
     "node/config.py": "own copies of RULE_NAMES and validate_axes; no "
                       "compile cache by default",
     "node/solver.py": "the SD-1.5 half only, on CUDA streams and events",
     "node/factory.py": "anythingv3 only, on a torch device",
-    "chain/__init__.py": "exports only engine, fixedpoint and token",
     "node/sched.py": "module docstring only: no project history",
 }
 

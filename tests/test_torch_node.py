@@ -717,7 +717,6 @@ def test_boot_self_test_with_recorded_golden(registry, corrupt):
     ({"mesh": {"dp": 2}}, 11),
     ({"aot_cache": {"enabled": True}}, 12),
     ({"compile_cache_dir": ".jax_cache"}, 12),
-    ({"pipeline": {"enabled": True}}, 5),
     ({"perfscope": {"enabled": True}}, 12),
     ({"alerts": {"enabled": True}}, 12),
     ({"fleet": {"enabled": True}}, 12),
@@ -735,6 +734,20 @@ def test_unported_settings_refused_at_boot(overrides, item):
         node = P.node.MinerNode(P.node.LocalChain(eng, MINER), cfg,
                                 P.node.ModelRegistry())
         node.boot()
+
+
+def test_pipeline_enabled_boots():
+    """The staged pipeline is ported: MiningConfig.example.json's
+    `pipeline` block boots, with its encode pool, and closes it."""
+    P = _pkg("arbius_tpu_torch")
+    eng = P.Engine(P.TokenLedger(), start_time=0)
+    node = P.node.MinerNode(P.node.LocalChain(eng, MINER), P.node.load_config(
+        {"pipeline": {"enabled": True, "depth": 2, "encode_workers": 2,
+                      "max_inflight_pins": 4}}), P.node.ModelRegistry())
+    node.boot()
+    assert len(node._pipeline._workers) == 2
+    node.close()
+    assert node._pipeline._workers == []
 
 
 def test_single_device_mesh_boots():

@@ -231,6 +231,38 @@ def test_generate_bf16_looser(monkeypatch, jax_tree):
     assert np.abs(ju - tu).max() <= 32
 
 
+def test_factory_bf16_weights_match_cast_floating(monkeypatch, jax_tree):
+    """`weights_dtype: "bfloat16"`, the path the node mines and the
+    golden was recorded on: the factory's runner (node/factory.py
+    `_sd15_runner`) holds exactly the reference's `cast_floating` tree,
+    and the two generate the same float pixels from it at float32
+    compute, within the float32 generate's tolerance of 1e-4 (measured
+    6.3e-6 on this config)."""
+    from arbius_tpu.utils import cast_floating
+    from arbius_tpu_torch.node.factory import _sd15_runner
+
+    runner = _sd15_runner(tiny=True, device="cpu",
+                          params=params_from_jax(jax_tree), seed=0,
+                          weights_dtype="bfloat16")
+    state = {k: v.float() for k, v in
+             runner.pipeline.models.state_dict().items()}
+    cast = jax.tree_util.tree_map(
+        lambda a: np.asarray(a).astype(np.float32),
+        cast_floating(jax_tree, jnp.bfloat16))
+    want_state = params_from_jax(cast)
+    assert state.keys() == want_state.keys()
+    for k, v in state.items():
+        assert torch.equal(v, want_state[k]), k
+
+    port = SD15Pipeline(_config(SD15Config, "float32"),
+                        tokenizer=tiny_byte_tokenizer(SD15Config.tiny().text),
+                        device="cpu")
+    port.load_params(state)
+    got, want = _float_pixels(monkeypatch, cast, port, "float32",
+                              "DPMSolverMultistep")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_generate_uint8_and_run_to_run(port_f32):
     kw = dict(width=64, height=64, num_inference_steps=2,
               guidance_scale=GUIDANCE, scheduler="DPMSolverMultistep")
