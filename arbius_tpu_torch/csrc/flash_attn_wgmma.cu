@@ -1,14 +1,16 @@
 // Exact softmax attention on Hopper's warpgroup tensor cores (wgmma), fed
-// by TMA, for sm_90a: the bf16 route for the UNet's large self-attentions,
-// head dims 40 and 80 with query and key lengths multiples of 128.
+// by TMA, for sm_90a: the bf16 route for the UNet's self-attentions, at
+// head dims 40, 80 and 160 and any query and key lengths (4096^2 and
+// 1024^2 at 512x512, 1600^2 at 640x640, 576^2 and 144^2 at D = 160 at
+// 768x768, ...).
 //
 // Replaces the Pallas TPU kernel `_kernel` launched by `flash_attention`
 // in arbius_tpu/ops/flash.py (:34-60): out = softmax(q k^T / sqrt(D)) v
 // over [B, H, S, D] tensors, with the running max m, the normaliser l and
 // the accumulator in float32, and the output cast to q's dtype. It computes
-// exactly what flash_attn_tc.cu (mma.sync) computes: float32 scores,
-// exp2 with scale*log2(e) folded into one FMA, P rounded to bf16 before
-// P V, l summed from the unrounded P, acc / l cast to bf16.
+// what the other tensor-core kernels compute: float32 scores, exp2 with
+// scale*log2(e) folded into one FMA, keys >= S_kv at -inf, P rounded to
+// bf16 before P V, l summed from the unrounded P, acc / l cast to bf16.
 //
 // What bounds it on this card. Every score costs one exp2 on the SFU, 16
 // a clock per SM, against 4096 bf16 tensor-core FLOP a clock. At D = 40 a
@@ -16,21 +18,29 @@
 // (level 0, 8 x 8 x 4096^2 of them: 0.278 ms at the SFU's 3.87e12/s) take
 // longer than the products (0.174 ms at 989 TFLOP/s): the SFU sets the
 // floor. At D = 80 the two are about level (0.017 ms exp2, 0.022 ms
-// products): operations bound it.
+// products at 1024^2): operations bound it. At D = 160 a score carries
+// 640 FLOP of products against one exp2, and the calls are small: bytes
+// bound them (144^2: 3.5 us to read q, k, v and write o, 0.9 us of
+// products).
 //
 // Design (FlashAttention-3's shape):
 //   - one block per (b*h, query tile): a producer warpgroup and consumer
 //     warpgroups of 64 query rows each, three at D = 40 (192-row tiles)
-//     and two at D = 80 (128-row tiles). At D = 40 little of a consumer's
-//     time is throughput: its softmax is a chain of dependent steps run by
-//     one warp per SM sub-partition, so a third consumer keeps the
-//     sub-partitions busy (160 registers each); at D = 80 the accumulators
-//     of three would spill. Rows of the last tile past Sq are read as
-//     zeros and not stored. The block walks the key/value tiles of 128
-//     keys in a fixed order: no split-KV, no atomics, and a query row's
-//     arithmetic stays inside the warpgroup that owns it, so results are
-//     bit-identical from run to run and invariant to batch position, and
-//     do not depend on the number of consumers.
+//     and two at D = 80 and 160 (128-row tiles). At D = 40 little of a
+//     consumer's time is throughput: its softmax is a chain of dependent
+//     steps run by one warp per SM sub-partition, so a third consumer
+//     keeps the sub-partitions busy (160 registers each); at D = 80 the
+//     accumulators of three would spill. Rows of the last tile past Sq
+//     are read as zeros and not stored. The block walks the key/value
+//     tiles, ceil(S_kv / kBK) of them, in a fixed order: no split-KV, no
+//     atomics, and a query row's arithmetic stays inside the warpgroup
+//     that owns it, so results are bit-identical from run to run and
+//     invariant to batch position, and do not depend on the number of
+//     consumers. The last tile's keys >= S_kv are masked: TMA reads the
+//     rows past S_kv as zeros, which would score 0, not -inf.
+//   - the key tile is 128 keys at D = 40 and 80, 64 at D = 160: two
+//     stages of 128-key K and V tiles at D = 160 would take 192 KB beside
+//     Q's 48 KB, more than a block's 227 KB of shared memory.
 //   - the producer (one thread; setmaxnreg gives its warpgroup's registers
 //     to the consumers) loads Q once and K and V tile by tile with TMA
 //     into a ring of two stages, each with its own full and empty
@@ -40,10 +50,11 @@
 //     not a swizzle width, so every tile is loaded in boxes of 64 columns
 //     with the 128-byte swizzle: columns past D lie outside the tensor and
 //     TMA writes zeros there (never the next head's data). That pads the
-//     contraction of Q K^T to 48 (D = 40) or 80 (D = 80) with zeros, and
-//     the shared layout is the canonical 128-byte swizzled one that wgmma
-//     reads without bank conflicts.
-//   - S = Q K^T: wgmma m64n128k16, A (Q) and B (K) K-major from shared
+//     contraction of Q K^T to 48 (D = 40) or 80 (D = 80) with zeros; at
+//     D = 160 three boxes take columns 0-191 and the contraction is 10
+//     k16 steps with no pad. The shared layout is the canonical 128-byte
+//     swizzled one that wgmma reads without bank conflicts.
+//   - S = Q K^T: wgmma m64n{kBK}k16, A (Q) and B (K) K-major from shared
 //     memory. O += P V: wgmma m64nDk16, P as the A operand from registers
 //     (the float32 accumulator layout of S, packed to bf16 pairs, is the
 //     A-fragment layout), V as B from shared memory in its natural
@@ -58,22 +69,25 @@
 
 namespace {
 
-constexpr int kBK = 128;        // keys per K/V tile
 constexpr int kStages = 2;      // depth of the K/V ring
 constexpr int kRow = 128;       // bytes of one 64-column block of a row
 constexpr int kBarTurn = 1;     // named barrier kBarTurn + c: consumer c's turn
 
 template <int D>
 struct Layout {
-  // consumer warpgroups of 64 query rows each: three at D = 40, where
-  // a third hides more of the softmax's latency, two at D = 80, where the
-  // accumulators of three would not fit the registers
+  // keys per K/V tile: 128, but 64 at D = 160 (see the design)
+  static constexpr int kBK = D == 160 ? 64 : 128;
+  // consumer warpgroups of 64 query rows each: three at D = 40, where a
+  // third hides more of the softmax's latency, else two
   static constexpr int kWarpgroups = D == 40 ? 3 : 2;
   static constexpr int kConsumers = 128 * kWarpgroups;
   static constexpr int kThreads = kConsumers + 128;  // + the producer
   // registers per thread after setmaxnreg (65536 in all on the SM)
   static constexpr int kProducerRegs = D == 40 ? 24 : 40;
   static constexpr int kConsumerRegs = D == 40 ? 160 : 232;
+  static_assert(regs_balance(kThreads, kWarpgroups, kProducerRegs,
+                             kConsumerRegs),
+                "setmaxnreg cannot give the consumers these registers");
   static constexpr int kBQ = 64 * kWarpgroups;     // query rows per block
   static constexpr int kBlocks = (D + 63) / 64;    // 64-column blocks per row
   static constexpr int kSteps = (D + 15) / 16;     // k16 steps of Q K^T
@@ -89,26 +103,16 @@ struct Barriers {
   uint64_t empty_k[kStages], empty_v[kStages];
 };
 
-// O += P V for one 16-key step
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  if constexpr (D == 40) {
-    wgmma_rs_n40(o, a, desc);
-  } else {
-    wgmma_rs_n80(o, a, desc);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                       const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const Params p) {
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const Params p) {
   using L = Layout<D>;
-  constexpr int kO = D / 2;  // output accumulators per thread
+  constexpr int kBK = L::kBK;
+  constexpr int kS = kBK / 2;  // score accumulators per thread
+  constexpr int kO = D / 2;    // output accumulators per thread
   constexpr int kWG = L::kWarpgroups;
 
   extern __shared__ unsigned char smem_raw[];
@@ -121,7 +125,7 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
   const int b = bh / p.heads;
   const int h = bh - b * p.heads;
   const int q0 = blockIdx.x * L::kBQ;
-  const int ntiles = p.skv / kBK;
+  const int ntiles = (p.skv + kBK - 1) / kBK;
   const int kv_end = p.skv;  // keys at or past this are masked
   const float sl2 = p.scale * kLog2e;
   const int wg = threadIdx.x / 128;
@@ -153,7 +157,7 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
         const uint32_t fv = smem_addr(&bars.full_v[st]);
         mbar_wait(smem_addr(&bars.empty_k[st]), free_parity);
         mbar_arrive_expect_tx(fk, L::kKV);
-        for (int c = 0; c < L::kBlocks; ++c)
+        for (int c = 0; c < L::kBlocks; ++c)  // keys past S_kv read as zeros
           tma_load_4d(sK + st * L::kKV + c * kBK * kRow, &tk, fk, 64 * c,
                       t * kBK, h, b);
         mbar_wait(smem_addr(&bars.empty_v[st]), free_parity);
@@ -171,11 +175,11 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
     const int warp = (threadIdx.x >> 5) & 3;
     if (c == 0) named_arrive(kBarTurn, 256);  // consumer 0 goes first
 
-    float s[64];      // S: rows lane/4 (+8), 8-key column tiles j: s[4j..]
-    float o[kO];      // O: the same layout over D's 8-column tiles
+    float s[kS];     // S: rows lane/4 (+8), 8-key column tiles j: s[4j..]
+    float o[kO];     // O: the same layout over D's 8-column tiles
     uint32_t pa[kBK / 16][4];  // P_{t-1} as bf16 A fragments, 16 keys each
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int i = 0; i < kS; ++i) s[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < kO; ++i) o[i] = 0.f;
 #pragma unroll
@@ -203,7 +207,7 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 #pragma unroll
         for (int ks = 0; ks < L::kSteps; ++ks) {
           const uint32_t blk = ks / 4, off = (ks % 4) * 32;
-          wgmma_ss_n128(
+          wgmma_ss<kBK>(
               s,
               desc_sw128(sQ + blk * L::kBQ * kRow + c * 64 * kRow + off, 16,
                          1024),
@@ -215,7 +219,7 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
       if (has_pv) {
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
-          wgmma_pv<D>(o, pa[kk],
+          wgmma_rs<D>(o, pa[kk],
                       desc_sw128(sV + pst * L::kKV + kk * 16 * kRow,
                                  kBK * kRow, 1024));
         wgmma_commit();
@@ -232,20 +236,20 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
           wgmma_wait<0>();
         }
 #pragma unroll
-        for (int i = 0; i < 64; ++i) fence_reg(s[i]);
+        for (int i = 0; i < kS; ++i) fence_reg(s[i]);
         mbar_arrive(smem_addr(&bars.empty_k[st]));
 
         const int kv0 = t * kBK;
         if (kv0 + kBK > kv_end) {
 #pragma unroll
-          for (int i = 0; i < 64; ++i)
+          for (int i = 0; i < kS; ++i)
             if (kv0 + (i >> 2) * 8 + 2 * (lane & 3) + (i & 1) >= kv_end)
               s[i] = -INFINITY;
         }
         // online softmax in the log2 domain; a row's 4 owners are a quad
         float mx[2] = {m[0], m[1]};
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kS / 4; ++j) {
           mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
           mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
         }
@@ -259,13 +263,13 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
           msc[r] = mx[r] * sl2;
         }
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < kS; ++i)
           s[i] = ex2(fmaf(s[i], sl2, -msc[(i >> 1) & 1]));
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           float rs = 0.f;
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < kS / 4; ++j)
             rs += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
           l[r] = l[r] * alpha[r] + rs;
         }
@@ -322,81 +326,30 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (the build
-// links no libcuda); null if the driver lacks it
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// The map of one bf16 [B, H, S, D] view with element strides (sb, sh, ss)
-// and unit stride over D, read in boxes of 64 columns x `box_rows` rows
-// with the 128-byte swizzle; columns and rows past the tensor read as
-// zeros. 0 on success.
-int encode_map(CUtensorMap* map, const void* ptr, int batch, int heads,
-               int len, int d, long long sb, long long sh, long long ss,
-               int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : 1000 + (int)res;
-}
-
 template <int D>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int smem = Layout<D>::kSmem;
+  using L = Layout<D>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        flash_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
   CUtensorMap tq, tk, tv;
   int err = encode_map(&tq, p.q, batch, p.heads, p.sq, D, p.q_sb, p.q_sh,
-                       p.q_ss, Layout<D>::kBQ);
+                       p.q_ss, L::kBQ);
   if (err == 0)
     err = encode_map(&tk, p.k, batch, p.heads, p.skv, D, p.k_sb, p.k_sh,
-                     p.k_ss, kBK);
+                     p.k_ss, L::kBK);
   if (err == 0)
     err = encode_map(&tv, p.v, batch, p.heads, p.skv, D, p.v_sb, p.v_sh,
-                     p.v_ss, kBK);
+                     p.v_ss, L::kBK);
   if (err != 0) return err;
-  const dim3 grid((p.sq + Layout<D>::kBQ - 1) / Layout<D>::kBQ,
-                  batch * p.heads);
-  flash_wgmma_kernel<D><<<grid, Layout<D>::kThreads, smem, stream>>>(tq, tk,
-                                                                      tv, p);
+  const dim3 grid((p.sq + L::kBQ - 1) / L::kBQ, batch * p.heads);
+  flash_wgmma_kernel<D>
+      <<<grid, L::kThreads, L::kSmem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -405,23 +358,22 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 extern "C" {
 
 // The argument list of arbius_flash_attn_fwd (flash_attn.cu). Takes bf16
-// (dtype 1) only, D = 40 or 80, Sq and Skv multiples of 128, every B/H/S
-// stride a multiple of 8 elements and 16-byte aligned q/k/v/o (ops/flash.py's
-// route rule); o: contiguous [B, H, Sq, D]. Launches on `stream`, allocates
-// nothing, and returns 0 on success, else a CUDA error code, or 1000 plus
-// the driver's code where a tensor map cannot be encoded.
-int arbius_flash_attn_wgmma_fwd(const void* q, const void* k, const void* v,
-                                void* o, int dtype, int batch, int heads,
-                                int sq, int skv, int d, long long q_sb,
-                                long long q_sh, long long q_ss,
-                                long long k_sb, long long k_sh,
-                                long long k_ss, long long v_sb,
-                                long long v_sh, long long v_ss, float scale,
-                                void* stream) {
+// (dtype 1) only, D = 40, 80 or 160, any Sq and Skv >= 1, every B/H/S
+// stride a multiple of 8 elements and 16-byte aligned q/k/v/o
+// (ops/flash.py's route rule); o: contiguous [B, H, Sq, D]. Launches on
+// `stream`, allocates nothing, and returns 0 on success, else a CUDA error
+// code, or 1000 plus the driver's code where a tensor map cannot be
+// encoded.
+int arbius_flash_attn_wgmma_fwd(
+    const void* q, const void* k, const void* v, void* o, int dtype,
+    int batch, int heads, int sq, int skv, int d, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    float scale, void* stream) {
   const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh,
                                 k_ss, v_sb, v_sh, v_ss};
-  bool ok = dtype == 1 && (d == 40 || d == 80) && sq > 0 && skv > 0 &&
-            sq % 128 == 0 && skv % kBK == 0 &&
+  bool ok = dtype == 1 && (d == 40 || d == 80 || d == 160) && sq > 0 &&
+            skv > 0 &&
             ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 ==
                 0;
   for (long long s : strides) ok = ok && s % 8 == 0;
@@ -429,7 +381,9 @@ int arbius_flash_attn_wgmma_fwd(const void* q, const void* k, const void* v,
   Params p{q,    k,    v,    o,    heads, sq,   skv,  d,    q_sb,
            q_sh, q_ss, k_sb, k_sh, k_ss,  v_sb, v_sh, v_ss, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 40 ? launch<40>(p, batch, st) : launch<80>(p, batch, st);
+  if (d == 40) return launch<40>(p, batch, st);
+  if (d == 80) return launch<80>(p, batch, st);
+  return launch<160>(p, batch, st);
 }
 
 }  // extern "C"

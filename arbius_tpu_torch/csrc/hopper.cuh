@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the wgmma attention kernel
-// (flash_attn_wgmma.cu): wgmma descriptors, issue, fences and waits;
-// mbarriers; TMA tile loads through a CUtensorMap; named barriers; and
+// Hopper (sm_90a) building blocks of the wgmma attention kernels
+// (flash_attn_wgmma.cu, flash_attn_wgmma_short.cu): wgmma descriptors,
+// issue, fences and waits; mbarriers; TMA tile loads and stores through a
+// CUtensorMap, and the host's encoding of those maps; named barriers; and
 // register reallocation between warpgroups (setmaxnreg). Thin wrappers of
 // the PTX, all inline and file-local; the mma.sync kernels keep to
 // tensor_core.cuh.
@@ -135,6 +136,165 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (+)= A B, m64n16k16: A and B in shared memory (descriptors), both
+// K-major; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A B, m64n32k16: A and B in shared memory (descriptors), both
+// K-major; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A B, m64n64k16: A and B in shared memory (descriptors), both
+// K-major; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A B, m64n80k16: A and B in shared memory (descriptors), both
+// K-major; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d += A B, m64n160k16: A (bf16 pairs, the accumulator layout of
+// wgmma_ss) in registers, B in shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (+)= A B, m64nNk16, A and B K-major in shared memory, for the widths
+// above
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 80 || N == 128,
+                "no wgmma_ss wrapper for this width");
+  if constexpr (N == 16) {
+    wgmma_ss_n16(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 32) {
+    wgmma_ss_n32(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 64) {
+    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 80) {
+    wgmma_ss_n80(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_ss_n128(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// d += A B, m64nNk16, A from registers, B MN-major in shared memory, for
+// the head dims above
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  static_assert(N == 40 || N == 80 || N == 160,
+                "no wgmma_rs wrapper for this width");
+  if constexpr (N == 40) {
+    wgmma_rs_n40(d, a, desc_b);
+  } else if constexpr (N == 80) {
+    wgmma_rs_n80(d, a, desc_b);
+  } else {
+    wgmma_rs_n160(d, a, desc_b);
+  }
+}
+
 // -- mbarrier and TMA ----------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -190,6 +350,42 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// one box of shared memory at `src` into a 3-D tensor map (coordinates
+// innermost first); parts of the box outside the tensor are not written.
+// Tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still reading
+// shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// makes this thread's ordinary writes to shared memory visible to the
+// async proxy (a TMA store that reads them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // -- warpgroups -------------------------------------------------------------
 
 // named barrier `id` (1-15; 0 is __syncthreads') over `count` threads
@@ -209,6 +405,90 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Whether a block of one producer warpgroup and `consumers` consumer
+// warpgroups (`threads` in all, one block per SM) can move registers as
+// setmaxnreg asks: every warp starts with the per-thread count its launch
+// bound gives (ptxas allocates exactly that in a kernel that reallocates),
+// and the consumers' increase must come out of the producer's decrease. A
+// team that breaks this hangs in setmaxnreg.inc.
+constexpr bool regs_balance(int threads, int consumers, int producer_regs,
+                            int consumer_regs) {
+  const int start = (65536 / threads) & ~7;
+  return producer_regs <= start && consumer_regs >= start &&
+         consumers * (consumer_regs - start) <= start - producer_regs;
+}
+
+// -- tensor maps (host) -----------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (the build
+// links no libcuda); null if the driver lacks it
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The map of one bf16 [B, H, S, D] view with element strides (sb, sh, ss)
+// and unit stride over D, read in boxes of 64 columns x `box_rows` rows
+// with the 128-byte swizzle; columns and rows past the tensor read as
+// zeros. 0 on success.
+inline int encode_map(CUtensorMap* map, const void* ptr, int batch,
+                      int heads, int len, int d, long long sb, long long sh,
+                      long long ss, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 1000 + (int)res;
+}
+
+// The map of a contiguous bf16 output [BH, S, D] written in boxes of D
+// columns x `box_rows` rows, unswizzled (rows of 2D bytes in shared
+// memory); rows of a box past S are not written. 0 on success.
+inline int encode_out_map(CUtensorMap* map, void* ptr, int bh, int len,
+                          int d, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)len,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)len * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)d, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides, box,
+         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : 1000 + (int)res;
 }
 
 }  // namespace

@@ -1,19 +1,25 @@
 """Exact softmax attention for [B, H, S, D]: the Hopper kernels and their
 plain PyTorch version, side by side.
 
-`flash_attention` launches one of four hand-written CUDA kernels, all
+`flash_attention` launches one of five hand-written CUDA kernels, all
 twins of the Pallas kernel in arbius_tpu/ops/flash.py (each source says
-what bounds it and how it is laid out). The three tensor-core routes take
+what bounds it and how it is laid out). The four tensor-core routes take
 bf16 with B/H/S strides that are multiples of 8 elements and 16-byte
-aligned data (their loads are 16-byte copies):
+aligned data (their loads are 16-byte copies or TMA boxes):
 
   - ``tensor_core_wgmma`` (``csrc/flash_attn_wgmma.cu``): Hopper's
     warpgroup products (wgmma) fed by TMA, consumer warpgroups taking
-    turns on them, for D = 40 and 80 with Sq and Skv multiples of 128.
-    The UNet's large self-attentions take it.
-  - ``tensor_core`` (``csrc/flash_attn_tc.cu``): mma.sync with bf16
-    operands, for 8 <= D <= 160, D % 8 == 0. The UNet's other attentions
+    turns on them over a ring of key tiles, for D = 40, 80 and 160 at
+    any lengths. The UNet's self-attentions over more than 128 keys
     take it.
+  - ``tensor_core_wgmma_short`` (``csrc/flash_attn_wgmma_short.cu``):
+    wgmma over one key tile, K and V resident and the query tiles
+    streamed through a TMA ring, O written by TMA stores, for D = 40, 80
+    and 160 with Skv <= 128. The UNet's 77-key cross-attentions and its
+    self-attentions of 128 tokens or fewer take it.
+  - ``tensor_core`` (``csrc/flash_attn_tc.cu``): mma.sync with bf16
+    operands, for 8 <= D <= 160, D % 8 == 0. No anythingv3 attention
+    takes it; it stays for other head dims.
   - ``tensor_core_wide`` (``csrc/flash_attn_tc_wide.cu``): mma.sync with
     bf16 operands, the accumulator and S split over 8 warps, for
     D = 512. The VAE's mid-block attention takes it.
@@ -45,16 +51,20 @@ import torch
 from arbius_tpu_torch.ops import _build
 
 SOURCES = {"tensor_core_wgmma": "flash_attn_wgmma.cu",
+           "tensor_core_wgmma_short": "flash_attn_wgmma_short.cu",
            "tensor_core": "flash_attn_tc.cu",
            "tensor_core_wide": "flash_attn_tc_wide.cu",
            "cuda_core": "flash_attn.cu"}
 _ENTRY = {"tensor_core_wgmma": "arbius_flash_attn_wgmma_fwd",
+          "tensor_core_wgmma_short": "arbius_flash_attn_wgmma_short_fwd",
           "tensor_core": "arbius_flash_attn_tc_fwd",
           "tensor_core_wide": "arbius_flash_attn_tc_wide_fwd",
           "cuda_core": "arbius_flash_attn_fwd"}
 MAX_HEAD_DIM = 512
-WGMMA_HEAD_DIMS = (40, 80)
-WGMMA_TILE = 128   # the wgmma kernel's key tile; both lengths its multiples
+# the wgmma kernels' head dims; the short one takes key lengths up to
+# WGMMA_SHORT_MAX_KV (one key tile)
+WGMMA_HEAD_DIMS = (40, 80, 160)
+WGMMA_SHORT_MAX_KV = 128
 TC_MAX_HEAD_DIM = 160
 TC_WIDE_HEAD_DIM = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,7 +92,7 @@ def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       - bf16, cuda_core: 1e-4 + 2**-8 * |ref|: one rounding of the
         float32 result (<= 2**-9 of it), doubled, plus atol for float32
         summation order;
-      - bf16, the three tensor-core routes: 1e-4 + 2**-8 * (|ref| +
+      - bf16, the four tensor-core routes: 1e-4 + 2**-8 * (|ref| +
         P |V|): P is rounded to bf16 before P V (<= 2**-9 of each
         p_i |v_i|, doubled as above), while l sums the unrounded P.
     """
@@ -105,14 +115,18 @@ def routes(dtype: torch.dtype, d: int, strides, pointers, sq: int,
     tensor-core routes need bf16 with every stride in `strides` (the B, H
     and S strides of q, k and v, in elements) a multiple of 8 and every
     data pointer in `pointers` 16-byte aligned; then
-    "tensor_core_wgmma" takes d in {40, 80} with `sq` and `skv`
-    multiples of 128, "tensor_core" 8 <= d <= 160 with d % 8 == 0, and
-    "tensor_core_wide" d = 512. "cuda_core" takes every call."""
+    "tensor_core_wgmma_short" takes d in {40, 80, 160} with `skv` <= 128,
+    "tensor_core_wgmma" d in {40, 80, 160}, "tensor_core" 8 <= d <= 160
+    with d % 8 == 0, and "tensor_core_wide" d = 512. "cuda_core" takes
+    every call. The short route comes before the wgmma one wherever both
+    take a call: on the H100 it was 1.2-2.2x faster at every anythingv3
+    shape of at most 128 keys (PERF.md section 6)."""
     out = []
     if (dtype == torch.bfloat16 and all(s % 8 == 0 for s in strides)
             and all(ptr % 16 == 0 for ptr in pointers)):
-        if (d in WGMMA_HEAD_DIMS and sq > 0 and skv > 0
-                and sq % WGMMA_TILE == 0 and skv % WGMMA_TILE == 0):
+        if d in WGMMA_HEAD_DIMS and sq > 0 and skv > 0:
+            if skv <= WGMMA_SHORT_MAX_KV:
+                out.append("tensor_core_wgmma_short")
             out.append("tensor_core_wgmma")
         if 8 <= d <= TC_MAX_HEAD_DIM and d % 8 == 0:
             out.append("tensor_core")

@@ -7,25 +7,32 @@ Run from the root of a checkout on a machine with one CUDA card; it builds
 everything it needs from the checkout's sources. Phases, each printing
 its own lines with timings:
 
-  1. setup: the card's name and power limit; build the four
+  1. setup: the card's name and power limit; build the five
      flash-attention kernels, the tensor-core routes (nvcc,
-     csrc/flash_attn_wgmma.cu for the UNet's large self-attentions,
-     csrc/flash_attn_tc.cu for its other attentions and
+     csrc/flash_attn_wgmma.cu for the UNet's self-attentions over more
+     than 128 keys, csrc/flash_attn_wgmma_short.cu for its attentions
+     over at most 128 keys, csrc/flash_attn_tc.cu (mma.sync) for other
+     head dims and
      csrc/flash_attn_tc_wide.cu for the VAE's D = 512) and the CUDA-core
      route (nvcc, csrc/flash_attn.cu), and the native PNG deflate (g++),
-     all at once; ptxas registers and spills per kernel (the wgmma and
-     the wide kernel must not spill).
+     all at once; ptxas registers and spills per kernel (the wgmma
+     kernels and the wide one must not spill).
   2. kernels: each route against the plain PyTorch version run in
      float32 on the same inputs, at every shape the main path (512x512)
-     and the template's default bucket (768x768) give it: the wgmma
-     route at the two large bf16 self-attentions, the tensor-core route
-     at the other 6 bf16 UNet shapes and forced onto those two, the wide
-     tensor-core route at the bf16 VAE shape, the CUDA-core route at all
-     9 in bf16 and in float32; per element within ops/flash.py's
-     `error_bound` for that route, and bit-identical on relaunch. Each
-     route's time beside the plain version's, SDPA's (a yardstick the
-     port never calls), the host's time to enqueue it and the least time
-     the card could take (operations, bytes or exponentials).
+     and the template's default bucket (768x768) give it, and at the
+     640x640 bucket's shapes whose lengths those two lack (1600^2 at
+     D = 80, 400^2 and 100^2 at D = 160, and their cross-attentions):
+     every route that takes the shape (`ops.flash.routes_of`): the
+     rule's choice, and forced beside it the wgmma route at the short
+     one's shapes, the mma.sync route at every UNet shape and the
+     CUDA-core route at every shape in bf16 and in float32; per element
+     within ops/flash.py's `error_bound` for that route, and
+     bit-identical on relaunch. Each route's device time (a CUDA graph
+     of its calls replayed between two events, `cuda_ms`) beside the
+     plain version's, SDPA's (a yardstick the port never calls), the
+     host's time to enqueue it (median and mean, `host_us`) and the
+     least time the card could take (operations, bytes or
+     exponentials).
   3. small reference: the tiny float32 config solved on the card and on
      the CPU from the same weights; uint8 pixels within one level.
   4. main path: anythingv3 at full width (seeded random weights) solves 6
@@ -34,14 +41,15 @@ its own lines with timings:
      32-byte commitments, finite non-constant images, and 641 kernel
      launches per chunk, per route as `expected_launches` derives them
      from ops/flash.py's rule (16 transformers x 2 attentions x 20 steps
-     on the tensor-core routes, 200 of them the wgmma one's, + the VAE's
-     one on the wide tensor-core route, none on the CUDA-core route).
+     on the wgmma routes: 300 on the wgmma one, 340 on the short one;
+     + the VAE's one on the wide tensor-core route; none on mma.sync or
+     the CUDA cores).
   5. determinism: a fresh pipeline solves the same tasks chunk by chunk
      with identical CIDs and the same launches per route, and one task
      keeps its CID among different neighbours.
-  5b. buckets: at 128x128, 768x768, 1024x768 and 768x1024 (4 steps) one
-     task keeps its CID among different neighbours, each chunk launching
-     each route as the rule says for that bucket.
+  5b. buckets: at 128x128, 640x640, 768x768, 1024x768 and 768x1024 (4
+     steps) one task keeps its CID among different neighbours, each
+     chunk launching each route as the rule says for that bucket.
   6. node: the port's miner node hosts anythingv3 at full width. The
      boot self-test golden (512x512, 20 steps, DPMSolverMultistep, seed
      1337, canonical batch 4, bf16 weights) is recorded with a fresh
@@ -117,10 +125,17 @@ def attention_shapes(width: int, height: int, steps: int = STEPS,
 # the main path's calls at 512x512, and the template default's
 MAIN_PATH_SHAPES = attention_shapes(SIZE, SIZE)
 BUCKET_768_SHAPES = attention_shapes(768, 768)
+# the 640x640 bucket's D = 80 and D = 160 calls, whose lengths (1600,
+# 400, 100) are not multiples of 128 as no length at 512 or 768 is
+BUCKET_640_RAGGED_SHAPES = tuple(s for s in attention_shapes(640, 640)
+                                 if 40 < s[4] < 512)
 LAUNCHES_PER_CHUNK = sum(s[-1] for s in MAIN_PATH_SHAPES)   # 641
 # the buckets the neighbour check covers beside 512x512: the template's
-# smallest, its default, and its two largest (non-square)
-BUCKETS = ((128, 128), (768, 768), (1024, 768), (768, 1024))
+# smallest, one with lengths that are not multiples of 128, its default,
+# and its two largest (non-square)
+BUCKETS = ((128, 128), (640, 640), (768, 768), (1024, 768), (768, 1024))
+# the routes of Hopper's warpgroup products (wgmma + TMA)
+WGMMA_ROUTES = ("tensor_core_wgmma", "tensor_core_wgmma_short")
 BUCKET_STEPS = 4
 ADDRESS = "0x" + "5a" * 20   # the miner address committed to
 # the port's boot self-test vector, valid for the build it records
@@ -153,29 +168,52 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean device time of `fn` over `iters` launches, after a warm-up."""
-    fn()
+    """Mean device time of one call of `fn`: after a warm-up call,
+    `iters` calls are captured in one CUDA graph (on a side stream, as
+    torch.cuda.graph does; the kernels' ctypes launches go to
+    torch.cuda.current_stream() and are captured like any other), and
+    one replay of the graph is timed between two CUDA events. So the
+    host's enqueue of each call is not in the time, as it was when the
+    events bracketed a Python loop of launches (which measured the host
+    wherever it was slower than the card)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()   # builds, loads and sets up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
-def host_us(torch, fn, calls: int = 50) -> float:
-    """Mean host time, in microseconds, to enqueue one call of `fn` (the
-    wrapper's own work and the launch; the card runs behind it)."""
+def host_us(torch, fn, calls: int = 50) -> dict[str, float]:
+    """Host time, in microseconds, to enqueue one call of `fn` (the
+    wrapper's own work and the launch; the card runs behind it), over
+    `calls` calls timed one by one: the median (`host_us`), the typical
+    call, and the mean (`host_mean_us`, the total over the calls
+    divided by them), which keeps the host's pauses (the garbage
+    collector, a page fault) that a batch of calls pays too."""
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    times = []
     for _ in range(calls):
+        t0 = time.perf_counter()
         fn()
-    elapsed = time.perf_counter() - t0
+        times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return elapsed / calls * 1e6
+    return {"host_us": statistics.median(times) * 1e6,
+            "host_mean_us": statistics.fmean(times) * 1e6}
 
 
 def kernel_error(torch, flash, q, k, v, out, route,
@@ -223,27 +261,25 @@ def bound_ms(b, h, sq, skv, d, elem_bytes) -> dict[str, float]:
 
 
 _LIMITS = ("operations", "bytes", "exponentials")
-_SUMMED = ("ms", "host_us", "plain_ms", "library_ms", *_LIMITS)
+_SUMMED = ("ms", "host_us", "host_mean_us", "plain_ms", "library_ms",
+           *_LIMITS)
 PLAIN_SLICE_BYTES = 4 << 30   # float32 scores per timed plain call
 
 
 def _check_shape(torch, flash, gen, dtype, shape, bucket) -> list[dict]:
-    """One main-path shape in `dtype`: each route that is checked there
-    against the plain version, and in bf16 each one's time beside the
-    plain version's, SDPA's and the bound. The routes: the shape's own,
-    the mma.sync tensor-core route where the shape's own is the wgmma
-    one (so the two are timed in one run), and the CUDA-core route,
-    which takes every input."""
+    """One main-path shape in `dtype`: every route that takes it
+    (`ops.flash.routes_of`, the rule's choice first) checked against
+    the plain version, and in bf16 each one's time beside the plain
+    version's, SDPA's and the bound, so that the rule's choice and the
+    routes it passed over are timed in one run."""
     import torch.nn.functional as F
 
     b, h, sq, skv, d, count = shape
     name = str(dtype).split(".")[-1]
     q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
                .to(dtype) for s in (sq, skv, skv))
-    main = flash.route_of(q, k, v)
-    routes = [main, *(["tensor_core"] if main == "tensor_core_wgmma"
-                      else []), *([] if main == "cuda_core"
-                                  else ["cuda_core"])]
+    routes = flash.routes_of(q, k, v)
+    main = routes[0]
     iters = 5 if sq * skv >= 1 << 20 else 20
     plain_ms = lib_ms = None
     if dtype == torch.bfloat16:
@@ -276,10 +312,10 @@ def _check_shape(torch, flash, gen, dtype, shape, bucket) -> list[dict]:
         if dtype == torch.bfloat16:
             ms = cuda_ms(torch, lambda: flash.flash_attention(
                 q, k, v, kernel=route), iters)
-            line.update(ms=ms, host_us=host_us(
-                torch, lambda: flash.flash_attention(q, k, v, kernel=route),
-                iters), plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=max(limits.values()),
+            enqueue = host_us(
+                torch, lambda: flash.flash_attention(q, k, v, kernel=route))
+            line.update(ms=ms, **enqueue, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=max(limits.values()),
                         bound_by=max(limits, key=limits.get),
                         launches_per_batch=count)
             if lib_ms is not None:
@@ -289,31 +325,52 @@ def _check_shape(torch, flash, gen, dtype, shape, bucket) -> list[dict]:
     return lines
 
 
-def _per_route(flash, lines) -> dict:
+def per_route(lines) -> dict:
     """Per route, the check's worst case and times summed over one
-    batch's calls (ms, plain_ms, library_ms, the bound's three limits):
-    over the calls the bucket sends to the route (launches_per_batch of
-    them), or, for a route the bucket does not launch, over its calls at
-    every bf16 shape the route was checked at, as if they were forced
-    onto it. `timed_at` lists those shapes with their calls per batch."""
+    batch's calls (ms, the host's median and mean, plain_ms, library_ms,
+    the bound's three limits): over the calls the bucket sends to the
+    route (launches_per_batch of them), or, for a route the bucket does
+    not launch, over its calls at every bf16 shape the route was checked
+    at, as if they were forced onto it. `timed_at` lists those shapes
+    with their calls per batch. `forced` gives, for a route the bucket
+    launches, each other route timed at all of its shapes, forced onto
+    the same calls: ms, host_ms and host_mean_ms. Routes come in the
+    order of `lines`; a figure a line lacks counts as 0."""
+    routes = list(dict.fromkeys(ln["route"] for ln in lines))
     out = {}
-    for route in flash.SOURCES:
+    for route in routes:
         mine = [ln for ln in lines if ln["route"] == route]
+        if not mine:
+            continue
         timed = [ln for ln in mine if "ms" in ln]
         on_path = [ln for ln in timed if ln["main_path"]]
         timed = on_path or timed
-        tot = {key: sum(ln["launches_per_batch"] * (ln[key] or 0.0)
+        tot = {key: sum(ln["launches_per_batch"] * (ln.get(key) or 0.0)
                         for ln in timed) for key in _SUMMED}
         tot["host_ms"] = tot.pop("host_us") / 1e3
+        tot["host_mean_ms"] = tot.pop("host_mean_us") / 1e3
         if any(ln["library_ms"] is None for ln in timed):
             tot["library_ms"] = None
+        forced = {}
+        for other in routes:
+            alt = {tuple(ln["shape"]): ln for ln in lines
+                   if ln["route"] == other and "ms" in ln}
+            if other != route and on_path and all(
+                    tuple(ln["shape"]) in alt for ln in on_path):
+                forced[other] = {
+                    name: sum(ln["launches_per_batch"]
+                              * (alt[tuple(ln["shape"])].get(key) or 0.0)
+                              for ln in on_path) / scale
+                    for name, key, scale in (
+                        ("ms", "ms", 1), ("host_ms", "host_us", 1e3),
+                        ("host_mean_ms", "host_mean_us", 1e3))}
         out[route] = {
             **tot, "bound_ms": max(tot[key] for key in _LIMITS),
             "bound_by": max(_LIMITS, key=tot.get), "cases": len(mine),
             "launches_per_batch": sum(ln["launches_per_batch"]
                                       for ln in on_path),
             "timed_at": [ln["shape"] + [ln["launches_per_batch"]]
-                         for ln in timed],
+                         for ln in timed], "forced": forced,
             "max_abs_err": max(ln["max_abs_err"] for ln in mine),
             "err_over_bound": max(ln["err_over_bound"] for ln in mine)}
     return out
@@ -321,20 +378,22 @@ def _per_route(flash, lines) -> dict:
 
 def phase_kernels(torch, flash) -> dict:
     """Check every route at every shape the main path (512x512) and the
-    template's default bucket (768x768) give it, in bf16 and float32,
-    and time the bf16 cases. Returns, per bucket, `_per_route`'s
-    summary."""
+    template's default bucket (768x768) give it, and at the 640x640
+    bucket's ragged shapes, in bf16 and float32, and time the bf16
+    cases. Returns, per bucket, `per_route`'s summary (at 640x640 over
+    those shapes only)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for bucket, shapes in (("512x512", MAIN_PATH_SHAPES),
-                           ("768x768", BUCKET_768_SHAPES)):
+                           ("768x768", BUCKET_768_SHAPES),
+                           ("640x640", BUCKET_640_RAGGED_SHAPES)):
         lines = []
         for dtype in (torch.bfloat16, torch.float32):
             for shape in shapes:
                 lines += _check_shape(torch, flash, gen, dtype, shape,
                                       bucket)
                 torch.cuda.empty_cache()
-        out[bucket] = _per_route(flash, lines)
+        out[bucket] = per_route(lines)
     return out
 
 
@@ -904,7 +963,7 @@ def main() -> int:
                 if "registers" in r]
         for reg, spill in zip(regs, spills):   # one pair per instantiation
             print(f"  {source} ptxas: {reg}; {spill}")
-        if route in ("tensor_core_wide", "tensor_core_wgmma"):
+        if route in ("tensor_core_wide", *WGMMA_ROUTES):
             check(spills and all("0 bytes spill stores, 0 bytes spill loads"
                                  in r for r in spills),
                   f"{source} spills registers: {spills}")
@@ -927,15 +986,22 @@ def main() -> int:
     cases = sum(t["cases"] for b in buckets.values() for t in b.values())
     print(f"kernels: checked {cases} route/shape/dtype cases in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for bucket, routes in buckets.items():
-        for route, t in routes.items():
+    for bucket in ("512x512", "768x768"):
+        for route, t in buckets[bucket].items():
             print(f"kernels: {route} per {bucket} batch "
                   f"({t['launches_per_batch']} launches, bf16, timed at "
                   f"{t['timed_at']}): kernel {t['ms']:.3f} ms, plain "
                   f"{t['plain_ms']:.3f} ms, sdpa {t['library_ms']} ms, "
                   f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}); host "
-                  f"{t['host_ms']:.3f} ms to enqueue them; worst "
-                  f"error/bound {t['err_over_bound']:.3f}", flush=True)
+                  f"{t['host_ms']:.3f} ms (median x calls), "
+                  f"{t['host_mean_ms']:.3f} ms (mean x calls) to enqueue "
+                  f"them; worst error/bound {t['err_over_bound']:.3f}",
+                  flush=True)
+            for other, f in t["forced"].items():
+                print(f"kernels: {route}'s {bucket} calls forced onto "
+                      f"{other}: kernel {f['ms']:.3f} ms; host "
+                      f"{f['host_ms']:.3f} ms (median), "
+                      f"{f['host_mean_ms']:.3f} ms (mean)", flush=True)
 
     # -- 3. small reference -----------------------------------------------
     phase_small_reference(torch)
@@ -1023,17 +1089,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
-    bounds = {"tensor_core_wgmma": tc_bound, "tensor_core": tc_bound,
+    bounds = {"tensor_core_wgmma": tc_bound,
+              "tensor_core_wgmma_short": tc_bound, "tensor_core": tc_bound,
               "tensor_core_wide": tc_bound,
               "cuda_core": "1e-4 + 2^-8 |ref| in bf16, "
                            "2e-5 + 2e-5 |ref| in float32"}
     names = {"cuda_core": "flash_attention",
              "tensor_core": "flash_attention_tc",
              "tensor_core_wide": "flash_attention_tc_wide",
-             "tensor_core_wgmma": "flash_attention_wgmma"}
+             "tensor_core_wgmma": "flash_attention_wgmma",
+             "tensor_core_wgmma_short": "flash_attention_wgmma_short"}
     entries = []
     for route in flash.SOURCES:
         t, t768 = k[route], buckets["768x768"][route]
+        t640 = buckets["640x640"].get(
+            route, {"max_abs_err": 0.0, "err_over_bound": 0.0, "cases": 0})
         entries.append({
             "name": names[route], "route": "cuda",
             "source": f"arbius_tpu_torch/csrc/{flash.SOURCES[route]}",
@@ -1041,26 +1111,31 @@ def main() -> int:
             "launches": launches[route],
             "launches_node": node_launches[route],
             "launches_node_run": node_run_launches[route],
-            "max_abs_err": max(t["max_abs_err"], t768["max_abs_err"]),
+            "max_abs_err": max(t["max_abs_err"], t768["max_abs_err"],
+                               t640["max_abs_err"]),
             # times: one 512x512 batch's calls (bf16) at timed_at,
-            # summed; see _per_route
+            # summed; see per_route
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "host_ms": t["host_ms"],
+            "host_ms": t["host_ms"], "host_mean_ms": t["host_mean_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "launches_per_batch": t["launches_per_batch"],
             "timed_at": t["timed_at"],
             "bucket_768x768": {key: t768[key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "host_ms",
-                "launches_per_batch", "timed_at")},
+                "host_ms", "host_mean_ms", "launches_per_batch",
+                "timed_at")},
             # reached only if every check of phase 2 passed
-            "check": {"cases": t["cases"] + t768["cases"],
-                      "buckets": ["512x512", "768x768"],
+            "check": {"cases": t["cases"] + t768["cases"]
+                      + t640["cases"],
+                      "buckets": ["512x512", "768x768",
+                                  "640x640 (1600^2, 400^2, 100^2 and "
+                                  "their cross-attentions)"],
                       "against": "plain version in float32, same inputs",
                       "bound": bounds[route],
                       "worst_err_over_bound": max(t["err_over_bound"],
-                                                  t768["err_over_bound"]),
+                                                  t768["err_over_bound"],
+                                                  t640["err_over_bound"]),
                       "matches_plain": True, "relaunch_identical": True},
         })
     print(card)

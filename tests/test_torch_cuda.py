@@ -50,9 +50,21 @@ _TENSOR_CORE_SHAPES = [(1, 2, 200, 200, 40), (2, 8, 256, 77, 80),
 # the VAE's shape at 512x512, and ragged query and key lengths
 _WIDE_SHAPES = [(4, 1, 4096, 4096, 512), (1, 1, 200, 77, 512),
                 (2, 1, 1000, 1000, 512)]
-# the UNet's two large self-attentions at 512x512, and lengths that differ
+# the UNet's two large self-attentions at 512x512, lengths that differ,
+# D = 160 at 512x512 and 768x768, D = 80 at 640x640, ragged lengths
 _WGMMA_SHAPES = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
-                 (1, 2, 128, 384, 40), (2, 3, 384, 128, 80)]
+                 (1, 2, 128, 384, 40), (2, 3, 384, 128, 80),
+                 (8, 8, 256, 256, 160), (8, 8, 576, 576, 160),
+                 (8, 8, 1600, 1600, 80), (1, 2, 200, 333, 40),
+                 (2, 3, 100, 129, 160), (1, 1, 64, 1000, 80)]
+# the 77-key cross-attentions at 512x512 and 768x768, short
+# self-attentions, and ragged query lengths and key widths (N = 16, 32,
+# 64, 80, 128)
+_SHORT_SHAPES = [(8, 8, 4096, 77, 40), (8, 8, 1024, 77, 80),
+                 (8, 8, 256, 77, 160), (8, 8, 64, 64, 160),
+                 (8, 8, 9216, 77, 40), (1, 2, 200, 16, 40),
+                 (2, 3, 100, 30, 80), (2, 3, 100, 100, 160),
+                 (1, 1, 4, 4, 160), (1, 2, 333, 128, 80)]
 
 
 @pytest.mark.parametrize("route,dtype,b,h,sq,skv,d", [
@@ -61,6 +73,8 @@ _WGMMA_SHAPES = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
     *(("tensor_core", torch.bfloat16, *s) for s in _TENSOR_CORE_SHAPES),
     *(("tensor_core_wide", torch.bfloat16, *s) for s in _WIDE_SHAPES),
     *(("tensor_core_wgmma", torch.bfloat16, *s) for s in _WGMMA_SHAPES),
+    *(("tensor_core_wgmma_short", torch.bfloat16, *s)
+      for s in _SHORT_SHAPES),
 ])
 def test_kernel_matches_plain(cuda, route, dtype, b, h, sq, skv, d):
     q, k, v = _inputs(cuda, b, h, sq, skv, d, dtype, seed=sq + d)
@@ -74,12 +88,14 @@ def test_kernel_matches_plain(cuda, route, dtype, b, h, sq, skv, d):
 
 
 def test_tensor_core_route_is_batch_position_invariant(cuda):
-    """Permuting the batch permutes the output bit for bit."""
+    """Permuting the batch permutes the output bit for bit (the mma.sync
+    route forced; the rule sends these inputs to the wgmma route)."""
     q, k, v = _inputs(cuda, 8, 2, 200, 333, 40, torch.bfloat16, seed=5)
     perm = torch.tensor([2, 3, 0, 1, 6, 7, 4, 5], device=cuda)
-    assert flash.route_of(q, k, v) == "tensor_core"
-    assert torch.equal(flash.flash_attention(q[perm], k[perm], v[perm]),
-                       flash.flash_attention(q, k, v)[perm])
+    assert "tensor_core" in flash.routes_of(q, k, v)
+    assert torch.equal(
+        flash.flash_attention(q[perm], k[perm], v[perm], kernel="tensor_core"),
+        flash.flash_attention(q, k, v, kernel="tensor_core")[perm])
 
 
 @pytest.mark.parametrize("b,h,sq,skv,d", _WIDE_SHAPES)
@@ -97,15 +113,19 @@ def test_wide_tensor_core_route_is_batch_position_invariant(cuda, b, h, sq,
 @pytest.mark.parametrize("b,h,sq,skv,d", _WGMMA_SHAPES)
 def test_wgmma_route_is_batch_position_invariant(cuda, b, h, sq, skv, d):
     """Permuting the batch (doubled, so that every entry has a
-    neighbour) permutes the output bit for bit."""
+    neighbour) permutes the output bit for bit (the route forced where
+    the rule sends a shape of at most 128 keys to the short one)."""
     q, k, v = _inputs(cuda, 2 * b, h, sq, skv, d, torch.bfloat16, seed=9)
     perm = torch.arange(2 * b, device=cuda).roll(1)
-    assert flash.route_of(q, k, v) == "tensor_core_wgmma"
-    assert torch.equal(flash.flash_attention(q[perm], k[perm], v[perm]),
-                       flash.flash_attention(q, k, v)[perm])
+    assert flash.route_of(q, k, v) == ("tensor_core_wgmma_short"
+                                       if skv <= 128 else "tensor_core_wgmma")
+    wgmma = "tensor_core_wgmma"
+    assert torch.equal(
+        flash.flash_attention(q[perm], k[perm], v[perm], kernel=wgmma),
+        flash.flash_attention(q, k, v, kernel=wgmma)[perm])
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 160])
 def test_wgmma_route_takes_the_models_strided_views(cuda, d):
     """Self-attention as the UNet hands it over: [B, S, H*D] viewed as
     [B, H, S, D]; the TMA maps read those strides."""
@@ -119,15 +139,55 @@ def test_wgmma_route_takes_the_models_strided_views(cuda, d):
     assert torch.equal(flash.flash_attention(qc, qc, qc), out)
 
 
-def test_wgmma_route_refuses_what_the_rule_sends_elsewhere(cuda):
-    before = flash.flash_attention.launches_by_route["tensor_core_wgmma"]
-    for sq, skv, d in ((200, 128, 40), (128, 77, 40), (128, 128, 160)):
+@pytest.mark.parametrize("route,cases", [
+    ("tensor_core_wgmma", ((128, 128, 64), (64, 77, 48), (64, 64, 512))),
+    ("tensor_core_wgmma_short", ((64, 129, 40), (64, 77, 64), (64, 77, 48)))])
+def test_wgmma_route_refuses_what_the_rule_sends_elsewhere(cuda, route,
+                                                           cases):
+    before = flash.flash_attention.launches_by_route[route]
+    for sq, skv, d in cases:
         q = torch.zeros(1, 1, sq, d, device=cuda, dtype=torch.bfloat16)
         kv = torch.zeros(1, 1, skv, d, device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="cannot take"):
-            flash.flash_attention(q, kv, kv, kernel="tensor_core_wgmma")
-    assert flash.flash_attention.launches_by_route["tensor_core_wgmma"] == (
-        before)
+            flash.flash_attention(q, kv, kv, kernel=route)
+    q = torch.zeros(1, 1, 64, 80, device=cuda)   # float32
+    with pytest.raises(ValueError, match="cannot take"):
+        flash.flash_attention(q, q, q, kernel=route)
+    assert flash.flash_attention.launches_by_route[route] == before
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", _SHORT_SHAPES[:4])
+def test_short_wgmma_route_is_batch_position_invariant(cuda, b, h, sq, skv,
+                                                       d):
+    """Permuting the batch (doubled, so that every entry has a
+    neighbour) permutes the output bit for bit."""
+    q, k, v = _inputs(cuda, 2 * b, h, sq, skv, d, torch.bfloat16, seed=11)
+    perm = torch.arange(2 * b, device=cuda).roll(1)
+    assert flash.route_of(q, k, v) == "tensor_core_wgmma_short"
+    assert torch.equal(flash.flash_attention(q[perm], k[perm], v[perm]),
+                       flash.flash_attention(q, k, v)[perm])
+
+
+@pytest.mark.parametrize("route,s,skv,d", [
+    ("tensor_core_wgmma_short", 256, 77, 40),
+    ("tensor_core_wgmma_short", 100, 100, 160),
+    ("tensor_core_wgmma", 400, 400, 160),
+    ("tensor_core_wgmma", 200, 200, 80)])
+def test_wgmma_routes_take_the_models_strided_views_at_any_length(
+        cuda, route, s, skv, d):
+    """As the UNet hands them over: [B, S, H*D] viewed as [B, H, S, D],
+    the keys from a context of `skv` tokens; the TMA maps read those
+    strides, and the output equals the contiguous inputs' bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(d + s)
+    q = (torch.randn(2, s, 8 * d, generator=gen, device=cuda).bfloat16()
+         .view(2, s, 8, d).transpose(1, 2))
+    kv = (torch.randn(2, skv, 8 * d, generator=gen, device=cuda).bfloat16()
+          .view(2, skv, 8, d).transpose(1, 2))
+    assert flash.route_of(q, kv, kv) == route
+    out = flash.flash_attention(q, kv, kv)
+    qc, kc = q.contiguous(), kv.contiguous()
+    _assert_within_bound(out, qc, kc, kc, route)
+    assert torch.equal(flash.flash_attention(qc, kc, kc), out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -138,7 +198,7 @@ def test_kernel_takes_strided_heads(cuda, dtype):
     x = torch.randn(2, 96, 4 * 40, generator=gen, device=cuda).to(dtype)
     q = x.view(2, 96, 4, 40).transpose(1, 2)
     route = flash.route_of(q, q, q)
-    assert route == ("tensor_core" if dtype == torch.bfloat16
+    assert route == ("tensor_core_wgmma_short" if dtype == torch.bfloat16
                      else "cuda_core")
     out = flash.flash_attention(q, q, q)
     qc = q.contiguous()

@@ -1,5 +1,5 @@
 """The port stands alone: arbius_tpu_torch, chip_smoke.py and the port's
-tool import neither JAX nor anything of arbius_tpu, and the port's entry
+tools import neither JAX nor anything of arbius_tpu, and the port's entry
 points do not quietly run on the CPU."""
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "arbius_tpu")
 SOURCES = sorted((REPO / "arbius_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "flash_mutants.py",
-    REPO / "tools" / "node_run_trace.py"]
+    REPO / "tools" / "flash_ablate.py", REPO / "tools" / "flash_same_bits.py",
+    REPO / "tools" / "flash_times.py", REPO / "tools" / "node_run_trace.py"]
 
 
 def _imported(path: pathlib.Path) -> set[str]:

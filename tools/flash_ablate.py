@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Time the wgmma attention kernel against copies of its source with one
-part of the work taken out (ablations), to see what holds it back on a
-card where no profiler runs.
+"""Time two wgmma attention kernels against copies of their sources with
+one part of the work taken out or one setting changed (ablations), to see
+what holds them back on a card where no profiler runs.
 
     python3 tools/flash_ablate.py
 
-Needs one CUDA card and nvcc; imports torch and the port only. Builds
-csrc/flash_attn_wgmma.cu and each copy in ABLATIONS (flash_mutants.py's
-build), checks the intact build against the plain version within
-ops/flash.py's `error_bound`, and times every build, in two rounds in
-opposite orders, at each self-attention the wgmma route takes at 512x512
-and 768x768, in the models' strided views, beside the mma.sync route and
-SDPA. An ablated build computes wrong results; only its time is read: the
-time it saves is what the part taken out costs where nothing else takes
-its place. Prints one JSON line per shape; exit 0 if the intact build
-passes its check.
+Needs one CUDA card and nvcc; imports torch and the port only. For each
+route in ABLATIONS (the wgmma route, csrc/flash_attn_wgmma.cu, and the
+short wgmma route, csrc/flash_attn_wgmma_short.cu) builds its source and
+each copy (flash_mutants.py's build), checks the intact build against the
+plain version within ops/flash.py's `error_bound`, and times every build,
+in two rounds in opposite orders, at each shape the route takes at
+512x512 and 768x768, in the models' strided views, beside the mma.sync
+route and SDPA. Each time is the card's, from `chip_smoke.cuda_ms`: ten calls
+captured in a CUDA graph and the graph replayed between two events, so
+the host's enqueue is not in it. An ablated build computes wrong
+results; only its time is read: the time it saves is what the part
+taken out costs where nothing else takes its place. Prints one JSON line
+per shape; exit 0 if the intact build passes its check.
 """
 from __future__ import annotations
 
@@ -31,9 +34,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from flash_mutants import build_edited  # noqa: E402
 
-ROUTE = "tensor_core_wgmma"
-# name -> (text in csrc/flash_attn_wgmma.cu, its replacement) pairs
-ABLATIONS = {
+# route -> name -> (text in the route's source, its replacement) pairs
+WGMMA_ABLATIONS = {
     "intact": [],
     # D = 40 on two consumer warpgroups (128-row tiles), as at D = 80
     "two_consumers": [
@@ -44,20 +46,20 @@ ABLATIONS = {
     "no_exp2": [("s[i] = ex2(fmaf(s[i], sl2, -msc[(i >> 1) & 1]));",
                  "s[i] = fmaf(s[i], sl2, -msc[(i >> 1) & 1]);")],
     # the product S = Q K^T, or O += P V, not issued
-    "no_qk": [("          wgmma_ss_n128(\n",
-               "          if (ks < 0) wgmma_ss_n128(\n")],
-    "no_pv": [("wgmma_pv<D>(o, pa[kk],",
-               "if (kk < 0) wgmma_pv<D>(o, pa[kk],")],
+    "no_qk": [("          wgmma_ss<kBK>(\n",
+               "          if (ks < 0) wgmma_ss<kBK>(\n")],
+    "no_pv": [("wgmma_rs<D>(o, pa[kk],",
+               "if (kk < 0) wgmma_rs<D>(o, pa[kk],")],
     # neither product: the loads, the softmax and the turns
-    "no_products": [("          wgmma_ss_n128(\n",
-                     "          if (ks < 0) wgmma_ss_n128(\n"),
-                    ("wgmma_pv<D>(o, pa[kk],",
-                     "if (kk < 0) wgmma_pv<D>(o, pa[kk],")],
-    # half of each K/V tile loaded (its first 64 rows): half the bytes
-    "half_loads": [("                     p.k_ss, kBK);",
-                    "                     p.k_ss, 64);"),
-                   ("                     p.v_ss, kBK);",
-                    "                     p.v_ss, 64);"),
+    "no_products": [("          wgmma_ss<kBK>(\n",
+                     "          if (ks < 0) wgmma_ss<kBK>(\n"),
+                    ("wgmma_rs<D>(o, pa[kk],",
+                     "if (kk < 0) wgmma_rs<D>(o, pa[kk],")],
+    # half of each K/V tile loaded (its first rows): half the bytes
+    "half_loads": [("                     p.k_ss, L::kBK);",
+                    "                     p.k_ss, L::kBK / 2);"),
+                   ("                     p.v_ss, L::kBK);",
+                    "                     p.v_ss, L::kBK / 2);"),
                    ("mbar_arrive_expect_tx(fk, L::kKV);",
                     "mbar_arrive_expect_tx(fk, L::kKV / 2);"),
                    ("mbar_arrive_expect_tx(fv, L::kKV);",
@@ -67,6 +69,21 @@ ABLATIONS = {
                     "      if (has_s) mbar_arrive(smem_addr(&bars.empty_k"
                     "[st]));\n      if (has_pv) mbar_arrive(smem_addr("
                     "&bars.empty_v[pst]));\n      continue;\n")],
+}
+ABLATIONS = {
+    "tensor_core_wgmma": WGMMA_ABLATIONS,
+    "tensor_core_wgmma_short": {
+        "intact": [],
+        # two consumer warpgroups at D = 40 and 80 too, as at D = 160
+        "two_consumers": [
+            ("kConsumers = D == 160 ? 2 : 3;", "kConsumers = 2;"),
+            ("kProducerRegs = D == 40 ? 24 : 40;", "kProducerRegs = 40;"),
+            ("kConsumerRegs = D == 40 ? 160 : D == 80 ? 152 : 232;",
+             "kConsumerRegs = 232;")],
+        # one query-tile stage per consumer, not two or three
+        "one_stage_each": [("constexpr int kMaxStages = 8;",
+                            "constexpr int kMaxStages = 3;")],
+    },
 }
 
 
@@ -84,48 +101,54 @@ def main() -> int:
     print(card_info(), flush=True)
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        built = build_edited(Path(tmp), {(ROUTE, name): pairs
-                                         for name, pairs in ABLATIONS.items()})
+        built = build_edited(Path(tmp), {
+            (route, name): pairs for route, ablations in ABLATIONS.items()
+            for name, pairs in ablations.items()})
         libs = {}
-        for (_, name), so in built.items():
-            libs[name] = ctypes.CDLL(str(so))
-            flash._declare(libs[name])
+        for (route, name), so in built.items():
+            libs[route, name] = ctypes.CDLL(str(so))
+            flash._declare(libs[route, name])
         gen = torch.Generator(device="cuda").manual_seed(0)
-        for bucket, shapes in (("512x512", chip_smoke.MAIN_PATH_SHAPES),
-                               ("768x768", chip_smoke.BUCKET_768_SHAPES)):
-            for b, h, sq, skv, d, _ in shapes:
-                q, k, v = (torch.randn(b, s, h * d, generator=gen,
-                                       device="cuda").bfloat16()
-                           .view(b, s, h, d).transpose(1, 2)
-                           for s in (sq, skv, skv))
-                if flash.route_of(q, k, v) != ROUTE:
-                    continue
-                row = {"bucket": bucket, "shape": [b, h, sq, skv, d]}
-                _build._loaded[flash.SOURCES[ROUTE]] = libs["intact"]
-                out = flash.flash_attention(q, k, v)
-                err = chip_smoke.kernel_error(torch, flash, q, k, v, out,
-                                              ROUTE)
-                row["intact_check"] = err
-                ok = ok and err["ok"]
-                row["sdpa_ms"] = chip_smoke.cuda_ms(
-                    torch, lambda: F.scaled_dot_product_attention(q, k, v),
-                    10)
-                row["tensor_core_ms"] = chip_smoke.cuda_ms(
-                    torch, lambda: flash.flash_attention(
-                        q, k, v, kernel="tensor_core"), 10)
-                for rnd in range(2):
-                    order = list(libs) if rnd == 0 else list(libs)[::-1]
-                    for name in order:
-                        _build._loaded[flash.SOURCES[ROUTE]] = libs[name]
-                        row.setdefault(f"{name}_ms", []).append(
-                            chip_smoke.cuda_ms(
-                                torch, lambda: flash.flash_attention(q, k, v),
-                                10))
-                print(json.dumps(row), flush=True)
-                del q, k, v, out
-                torch.cuda.empty_cache()
-    _build._loaded.pop(flash.SOURCES[ROUTE], None)
-    print(f"intact build within its bound at every shape: {ok}")
+        for route, ablations in ABLATIONS.items():
+            source = flash.SOURCES[route]
+            for bucket, shapes in (("512x512", chip_smoke.MAIN_PATH_SHAPES),
+                                   ("768x768", chip_smoke.BUCKET_768_SHAPES)):
+                for b, h, sq, skv, d, _ in shapes:
+                    q, k, v = (torch.randn(b, s, h * d, generator=gen,
+                                           device="cuda").bfloat16()
+                               .view(b, s, h, d).transpose(1, 2)
+                               for s in (sq, skv, skv))
+                    if flash.route_of(q, k, v) != route:
+                        continue
+                    row = {"route": route, "bucket": bucket,
+                           "shape": [b, h, sq, skv, d]}
+                    _build._loaded[source] = libs[route, "intact"]
+                    out = flash.flash_attention(q, k, v)
+                    err = chip_smoke.kernel_error(torch, flash, q, k, v, out,
+                                                  route)
+                    row["intact_check"] = err
+                    ok = ok and err["ok"]
+                    row["sdpa_ms"] = chip_smoke.cuda_ms(
+                        torch,
+                        lambda: F.scaled_dot_product_attention(q, k, v), 10)
+                    row["tensor_core_ms"] = chip_smoke.cuda_ms(
+                        torch, lambda: flash.flash_attention(
+                            q, k, v, kernel="tensor_core"), 10)
+                    for rnd in range(2):
+                        order = (list(ablations) if rnd == 0
+                                 else list(ablations)[::-1])
+                        for name in order:
+                            _build._loaded[source] = libs[route, name]
+                            row.setdefault(f"{name}_ms", []).append(
+                                chip_smoke.cuda_ms(
+                                    torch,
+                                    lambda: flash.flash_attention(q, k, v),
+                                    10))
+                    print(json.dumps(row), flush=True)
+                    del q, k, v, out
+                    torch.cuda.empty_cache()
+            _build._loaded.pop(source, None)
+    print(f"intact builds within their bound at every shape: {ok}")
     return 0 if ok else 1
 
 
