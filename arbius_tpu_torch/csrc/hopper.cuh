@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the wgmma attention kernels
-// (flash_attn_wgmma.cu, flash_attn_wgmma_short.cu): wgmma descriptors,
-// issue, fences and waits; mbarriers; TMA tile loads and stores through a
-// CUtensorMap, and the host's encoding of those maps; named barriers; and
+// (flash_attn_wgmma.cu, flash_attn_wgmma_short.cu,
+// flash_attn_wgmma_wide.cu): wgmma descriptors, issue, fences and waits;
+// mbarriers; TMA tile loads (one block's, or multicast over a cluster)
+// and stores through a CUtensorMap, and the host's encoding of those
+// maps; cluster ranks, barriers and remote arrivals; named barriers; and
 // register reallocation between warpgroups (setmaxnreg). Thin wrappers of
 // the PTX, all inline and file-local; the mma.sync kernels keep to
 // tensor_core.cuh.
@@ -42,6 +44,21 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// wait_group with a count known only after unrolling (0-8)
+__device__ __forceinline__ void wgmma_wait_n(int n) {
+  switch (n) {
+    case 0: wgmma_wait<0>(); break;
+    case 1: wgmma_wait<1>(); break;
+    case 2: wgmma_wait<2>(); break;
+    case 3: wgmma_wait<3>(); break;
+    case 4: wgmma_wait<4>(); break;
+    case 5: wgmma_wait<5>(); break;
+    case 6: wgmma_wait<6>(); break;
+    case 7: wgmma_wait<7>(); break;
+    default: wgmma_wait<8>(); break;
+  }
 }
 
 // Keep the compiler from moving a read or a reuse of a register that an
@@ -258,6 +275,62 @@ __device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d += A B, m64n256k16: A (bf16 pairs, the accumulator layout of
+// wgmma_ss) in registers, B in shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (+)= A B, m64nNk16, A and B K-major in shared memory, for the widths
 // above
 template <int N>
@@ -279,19 +352,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
 }
 
 // d += A B, m64nNk16, A from registers, B MN-major in shared memory, for
-// the head dims above
+// the head dims above and a 256-column half of D = 512
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  static_assert(N == 40 || N == 80 || N == 160,
+  static_assert(N == 40 || N == 80 || N == 160 || N == 256,
                 "no wgmma_rs wrapper for this width");
   if constexpr (N == 40) {
     wgmma_rs_n40(d, a, desc_b);
   } else if constexpr (N == 80) {
     wgmma_rs_n80(d, a, desc_b);
-  } else {
+  } else if constexpr (N == 160) {
     wgmma_rs_n160(d, a, desc_b);
+  } else {
+    wgmma_rs_n256(d, a, desc_b);
   }
 }
 
@@ -350,6 +425,23 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// tma_load_4d into every block of the cluster whose bit is set in `mask`:
+// the same box lands at the same offset `dst` of each block's shared
+// memory and completes `bytes` of the barrier at offset `bar` in each
+__device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar,
+                                                      uint16_t mask, int c0,
+                                                      int c1, int c2,
+                                                      int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // one box of shared memory at `src` into a 3-D tensor map (coordinates
 // innermost first); parts of the box outside the tensor are not written.
 // Tracked by the issuing thread's bulk groups.
@@ -384,6 +476,42 @@ __device__ __forceinline__ void bulk_wait() {
 // async proxy (a TMA store that reads them)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- thread-block clusters -----------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// if `pred`: arrive on the barrier at offset `bar` of the cluster's block
+// `cta` (this block's own where cta is its rank). Predicated, not
+// branched: a branch that only some lanes take, while wgmma products are
+// in flight, makes ptxas serialise the products. The arrival's release is
+// the default, at the block's scope, as CUTLASS's cluster pipelines
+// arrive.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta,
+                                                    bool pred) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n.reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar), "r"(cta), "r"((uint32_t)pred)
+      : "memory");
+}
+
+// every thread of every block of the cluster: no block goes on before all
+// have arrived (then each block's barriers and shared memory may be
+// reached by the others, or none of them is any more)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // -- warpgroups -------------------------------------------------------------

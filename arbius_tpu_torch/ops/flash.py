@@ -1,9 +1,9 @@
 """Exact softmax attention for [B, H, S, D]: the Hopper kernels and their
 plain PyTorch version, side by side.
 
-`flash_attention` launches one of five hand-written CUDA kernels, all
+`flash_attention` launches one of six hand-written CUDA kernels, all
 twins of the Pallas kernel in arbius_tpu/ops/flash.py (each source says
-what bounds it and how it is laid out). The four tensor-core routes take
+what bounds it and how it is laid out). The five tensor-core routes take
 bf16 with B/H/S strides that are multiples of 8 elements and 16-byte
 aligned data (their loads are 16-byte copies or TMA boxes):
 
@@ -17,12 +17,16 @@ aligned data (their loads are 16-byte copies or TMA boxes):
     streamed through a TMA ring, O written by TMA stores, for D = 40, 80
     and 160 with Skv <= 128. The UNet's 77-key cross-attentions and its
     self-attentions of 128 tokens or fewer take it.
+  - ``tensor_core_wgmma_wide`` (``csrc/flash_attn_wgmma_wide.cu``): wgmma
+    for D = 512 at any lengths, two consumer warpgroups splitting O by
+    columns, each K/V box loaded once per thread-block cluster and
+    multicast into its blocks. The VAE's mid-block attention takes it.
   - ``tensor_core`` (``csrc/flash_attn_tc.cu``): mma.sync with bf16
     operands, for 8 <= D <= 160, D % 8 == 0. No anythingv3 attention
     takes it; it stays for other head dims.
   - ``tensor_core_wide`` (``csrc/flash_attn_tc_wide.cu``): mma.sync with
     bf16 operands, the accumulator and S split over 8 warps, for
-    D = 512. The VAE's mid-block attention takes it.
+    D = 512. No anythingv3 attention takes it; checks force it.
   - ``cuda_core`` (``csrc/flash_attn.cu``): float32 arithmetic on the
     CUDA cores, for everything else (float32, other head dims, odd
     strides).
@@ -52,11 +56,13 @@ from arbius_tpu_torch.ops import _build
 
 SOURCES = {"tensor_core_wgmma": "flash_attn_wgmma.cu",
            "tensor_core_wgmma_short": "flash_attn_wgmma_short.cu",
+           "tensor_core_wgmma_wide": "flash_attn_wgmma_wide.cu",
            "tensor_core": "flash_attn_tc.cu",
            "tensor_core_wide": "flash_attn_tc_wide.cu",
            "cuda_core": "flash_attn.cu"}
 _ENTRY = {"tensor_core_wgmma": "arbius_flash_attn_wgmma_fwd",
           "tensor_core_wgmma_short": "arbius_flash_attn_wgmma_short_fwd",
+          "tensor_core_wgmma_wide": "arbius_flash_attn_wgmma_wide_fwd",
           "tensor_core": "arbius_flash_attn_tc_fwd",
           "tensor_core_wide": "arbius_flash_attn_tc_wide_fwd",
           "cuda_core": "arbius_flash_attn_fwd"}
@@ -92,7 +98,7 @@ def error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       - bf16, cuda_core: 1e-4 + 2**-8 * |ref|: one rounding of the
         float32 result (<= 2**-9 of it), doubled, plus atol for float32
         summation order;
-      - bf16, the four tensor-core routes: 1e-4 + 2**-8 * (|ref| +
+      - bf16, the five tensor-core routes: 1e-4 + 2**-8 * (|ref| +
         P |V|): P is rounded to bf16 before P V (<= 2**-9 of each
         p_i |v_i|, doubled as above), while l sums the unrounded P.
     """
@@ -117,10 +123,12 @@ def routes(dtype: torch.dtype, d: int, strides, pointers, sq: int,
     data pointer in `pointers` 16-byte aligned; then
     "tensor_core_wgmma_short" takes d in {40, 80, 160} with `skv` <= 128,
     "tensor_core_wgmma" d in {40, 80, 160}, "tensor_core" 8 <= d <= 160
-    with d % 8 == 0, and "tensor_core_wide" d = 512. "cuda_core" takes
-    every call. The short route comes before the wgmma one wherever both
-    take a call: on the H100 it was 1.2-2.2x faster at every anythingv3
-    shape of at most 128 keys (PERF.md section 6)."""
+    with d % 8 == 0, and "tensor_core_wgmma_wide" then "tensor_core_wide"
+    d = 512. "cuda_core" takes every call. The short route comes before
+    the wgmma one wherever both take a call: on the H100 it was 1.2-2.2x
+    faster at every anythingv3 shape of at most 128 keys (PERF.md
+    section 6); the wgmma wide route comes before the mma.sync one for
+    the same reason at the VAE's shapes."""
     out = []
     if (dtype == torch.bfloat16 and all(s % 8 == 0 for s in strides)
             and all(ptr % 16 == 0 for ptr in pointers)):
@@ -131,6 +139,8 @@ def routes(dtype: torch.dtype, d: int, strides, pointers, sq: int,
         if 8 <= d <= TC_MAX_HEAD_DIM and d % 8 == 0:
             out.append("tensor_core")
         if d == TC_WIDE_HEAD_DIM:
+            if sq > 0 and skv > 0:
+                out.append("tensor_core_wgmma_wide")
             out.append("tensor_core_wide")
     return [*out, "cuda_core"]
 

@@ -7,25 +7,29 @@ Run from the root of a checkout on a machine with one CUDA card; it builds
 everything it needs from the checkout's sources. Phases, each printing
 its own lines with timings:
 
-  1. setup: the card's name and power limit; build the five
+  1. setup: the card's name and power limit; build the six
      flash-attention kernels, the tensor-core routes (nvcc,
      csrc/flash_attn_wgmma.cu for the UNet's self-attentions over more
      than 128 keys, csrc/flash_attn_wgmma_short.cu for its attentions
-     over at most 128 keys, csrc/flash_attn_tc.cu (mma.sync) for other
-     head dims and
-     csrc/flash_attn_tc_wide.cu for the VAE's D = 512) and the CUDA-core
+     over at most 128 keys, csrc/flash_attn_wgmma_wide.cu for the VAE's
+     D = 512, csrc/flash_attn_tc.cu (mma.sync) for other head dims and
+     csrc/flash_attn_tc_wide.cu (mma.sync) at D = 512) and the CUDA-core
      route (nvcc, csrc/flash_attn.cu), and the native PNG deflate (g++),
-     all at once; ptxas registers and spills per kernel (the wgmma
-     kernels and the wide one must not spill).
+     all at once; ptxas registers, spills and notes of serialised wgmma
+     products per kernel (the wgmma kernels and the mma.sync wide one
+     must not spill, the wgmma wide one must have no such note).
   2. kernels: each route against the plain PyTorch version run in
      float32 on the same inputs, at every shape the main path (512x512)
      and the template's default bucket (768x768) give it, and at the
      640x640 bucket's shapes whose lengths those two lack (1600^2 at
-     D = 80, 400^2 and 100^2 at D = 160, and their cross-attentions):
+     D = 80, 400^2 and 100^2 at D = 160, and their cross-attentions),
+     and the VAE's call at the buckets whose length those lack (S = 256
+     at 128x128, 6400 at 640x640, 12288 at 1024x768 and 768x1024):
      every route that takes the shape (`ops.flash.routes_of`): the
      rule's choice, and forced beside it the wgmma route at the short
-     one's shapes, the mma.sync route at every UNet shape and the
-     CUDA-core route at every shape in bf16 and in float32; per element
+     one's shapes, the mma.sync route at every UNet shape, the mma.sync
+     wide route at the VAE's and the CUDA-core route at every shape in
+     bf16 and in float32; per element
      within ops/flash.py's `error_bound` for that route, and
      bit-identical on relaunch. Each route's device time (a CUDA graph
      of its calls replayed between two events, `cuda_ms`) beside the
@@ -42,8 +46,8 @@ its own lines with timings:
      launches per chunk, per route as `expected_launches` derives them
      from ops/flash.py's rule (16 transformers x 2 attentions x 20 steps
      on the wgmma routes: 300 on the wgmma one, 340 on the short one;
-     + the VAE's one on the wide tensor-core route; none on mma.sync or
-     the CUDA cores).
+     + the VAE's one on the wgmma wide route; none on mma.sync, its wide
+     kernel or the CUDA cores).
   5. determinism: a fresh pipeline solves the same tasks chunk by chunk
      with identical CIDs and the same launches per route, and one task
      keeps its CID among different neighbours.
@@ -129,13 +133,19 @@ BUCKET_768_SHAPES = attention_shapes(768, 768)
 # 400, 100) are not multiples of 128 as no length at 512 or 768 is
 BUCKET_640_RAGGED_SHAPES = tuple(s for s in attention_shapes(640, 640)
                                  if 40 < s[4] < 512)
+# the VAE's call (D = 512) at the buckets whose length 512x512 and 768x768
+# lack: S = 256, 6400 and 12288 (768x1024's is 1024x768's)
+VAE_BUCKET_SHAPES = tuple(next(s for s in attention_shapes(w, h)
+                               if s[4] == 512)
+                          for w, h in ((128, 128), (640, 640), (1024, 768)))
 LAUNCHES_PER_CHUNK = sum(s[-1] for s in MAIN_PATH_SHAPES)   # 641
 # the buckets the neighbour check covers beside 512x512: the template's
 # smallest, one with lengths that are not multiples of 128, its default,
 # and its two largest (non-square)
 BUCKETS = ((128, 128), (640, 640), (768, 768), (1024, 768), (768, 1024))
 # the routes of Hopper's warpgroup products (wgmma + TMA)
-WGMMA_ROUTES = ("tensor_core_wgmma", "tensor_core_wgmma_short")
+WGMMA_ROUTES = ("tensor_core_wgmma", "tensor_core_wgmma_short",
+                "tensor_core_wgmma_wide")
 BUCKET_STEPS = 4
 ADDRESS = "0x" + "5a" * 20   # the miner address committed to
 # the port's boot self-test vector, valid for the build it records
@@ -376,17 +386,22 @@ def per_route(lines) -> dict:
     return out
 
 
+def kernel_buckets() -> tuple:
+    """Phase 2's (bucket, shapes) sets: the main path (512x512), the
+    template's default bucket (768x768), the 640x640 bucket's ragged
+    UNet shapes, and the VAE's call at each length those lack."""
+    return (("512x512", MAIN_PATH_SHAPES), ("768x768", BUCKET_768_SHAPES),
+            ("640x640", BUCKET_640_RAGGED_SHAPES),
+            *((f"VAE S={s[2]}", (s,)) for s in VAE_BUCKET_SHAPES))
+
+
 def phase_kernels(torch, flash) -> dict:
-    """Check every route at every shape the main path (512x512) and the
-    template's default bucket (768x768) give it, and at the 640x640
-    bucket's ragged shapes, in bf16 and float32, and time the bf16
-    cases. Returns, per bucket, `per_route`'s summary (at 640x640 over
-    those shapes only)."""
+    """Check every route at every shape of `kernel_buckets`, in bf16 and
+    float32, and time the bf16 cases. Returns, per bucket, `per_route`'s
+    summary (at 640x640 over its ragged shapes only)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for bucket, shapes in (("512x512", MAIN_PATH_SHAPES),
-                           ("768x768", BUCKET_768_SHAPES),
-                           ("640x640", BUCKET_640_RAGGED_SHAPES)):
+    for bucket, shapes in kernel_buckets():
         lines = []
         for dtype in (torch.bfloat16, torch.float32):
             for shape in shapes:
@@ -395,6 +410,55 @@ def phase_kernels(torch, flash) -> dict:
                 torch.cuda.empty_cache()
         out[bucket] = per_route(lines)
     return out
+
+
+def kernel_entries(flash, buckets: dict, launches: dict) -> list[dict]:
+    """The `kernels` line: per route, phase 2's summaries (`buckets`, as
+    `phase_kernels` returns them; times per 512x512 batch, and per batch
+    of each other bucket timed) beside `launches`, each a name mapped to
+    the route's launch counts of one run (phases 4, 6 and 7)."""
+    tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
+    names = {"cuda_core": "flash_attention",
+             "tensor_core": "flash_attention_tc",
+             "tensor_core_wide": "flash_attention_tc_wide",
+             "tensor_core_wgmma": "flash_attention_wgmma",
+             "tensor_core_wgmma_short": "flash_attention_wgmma_short",
+             "tensor_core_wgmma_wide": "flash_attention_wgmma_wide"}
+    summary = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+               "host_ms", "host_mean_ms", "launches_per_batch", "timed_at",
+               "forced")
+    entries = []
+    for route in flash.SOURCES:
+        t = buckets["512x512"][route]
+        mine = {name: b[route] for name, b in buckets.items() if route in b}
+        entry = {
+            "name": names[route], "route": "cuda",
+            "source": f"arbius_tpu_torch/csrc/{flash.SOURCES[route]}",
+            "replaces": "arbius_tpu/ops/flash.py:34",
+            **{name: counts[route] for name, counts in launches.items()},
+            "max_abs_err": max(x["max_abs_err"] for x in mine.values()),
+            # times: one 512x512 batch's calls (bf16) at timed_at,
+            # summed; see per_route
+            **{key: t[key] for key in summary},
+            # the same at the other buckets the route was timed at
+            **{f"bucket_{name}": {key: x[key] for key in summary}
+               for name, x in mine.items()
+               if name not in ("512x512", "640x640")},
+            # reached only if every check of phase 2 passed
+            "check": {"cases": sum(x["cases"] for x in mine.values()),
+                      "buckets": [name if name != "640x640" else
+                                  "640x640 (1600^2, 400^2, 100^2 and "
+                                  "their cross-attentions)" for name in mine],
+                      "against": "plain version in float32, same inputs",
+                      "bound": tc_bound if route != "cuda_core" else
+                      "1e-4 + 2^-8 |ref| in bf16, 2e-5 + 2e-5 |ref| in "
+                      "float32",
+                      "worst_err_over_bound": max(
+                          x["err_over_bound"] for x in mine.values()),
+                      "matches_plain": True, "relaunch_identical": True},
+        }
+        entries.append(entry)
+    return entries
 
 
 def phase_small_reference(torch) -> None:
@@ -963,10 +1027,17 @@ def main() -> int:
                 if "registers" in r]
         for reg, spill in zip(regs, spills):   # one pair per instantiation
             print(f"  {source} ptxas: {reg}; {spill}")
+        # ptxas's notes where it serialises wgmma products (C7510-C7520)
+        serial = sorted({r.split("(", 1)[1].split(")", 1)[0] for r in report
+                         if "(C75" in r})
+        print(f"  {source} ptxas serialisation notes: {serial or 'none'}")
         if route in ("tensor_core_wide", *WGMMA_ROUTES):
             check(spills and all("0 bytes spill stores, 0 bytes spill loads"
                                  in r for r in spills),
                   f"{source} spills registers: {spills}")
+        if route == "tensor_core_wgmma_wide":
+            check(not serial, f"{source}: ptxas serialises its products "
+                  f"({serial})")
     check(_native.deflate_fixed() is not None,
           "native deflate (csrc/codecs.cc) did not build")
 
@@ -974,11 +1045,14 @@ def main() -> int:
     expected = expected_launches(torch, flash)
     t0 = time.perf_counter()
     buckets = phase_kernels(torch, flash)
-    for bucket, shapes in (("512x512", MAIN_PATH_SHAPES),
-                           ("768x768", BUCKET_768_SHAPES)):
+    for bucket, shapes in kernel_buckets():
+        if bucket == "640x640":   # a part of its bucket's calls only
+            continue
         per_batch = {r: t["launches_per_batch"]
                      for r, t in buckets[bucket].items()}
         want = expected_launches(torch, flash, shapes)
+        if bucket.startswith("VAE"):   # one call: the routes that take it
+            want = {r: n for r, n in want.items() if n or r in per_batch}
         check(per_batch == want, f"{bucket} launches per route "
               f"{per_batch}, expected {want}")
     k = buckets["512x512"]
@@ -986,7 +1060,9 @@ def main() -> int:
     cases = sum(t["cases"] for b in buckets.values() for t in b.values())
     print(f"kernels: checked {cases} route/shape/dtype cases in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for bucket in ("512x512", "768x768"):
+    for bucket, _ in kernel_buckets():
+        if bucket == "640x640":
+            continue
         for route, t in buckets[bucket].items():
             print(f"kernels: {route} per {bucket} batch "
                   f"({t['launches_per_batch']} launches, bf16, timed at "
@@ -1088,56 +1164,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
-    bounds = {"tensor_core_wgmma": tc_bound,
-              "tensor_core_wgmma_short": tc_bound, "tensor_core": tc_bound,
-              "tensor_core_wide": tc_bound,
-              "cuda_core": "1e-4 + 2^-8 |ref| in bf16, "
-                           "2e-5 + 2e-5 |ref| in float32"}
-    names = {"cuda_core": "flash_attention",
-             "tensor_core": "flash_attention_tc",
-             "tensor_core_wide": "flash_attention_tc_wide",
-             "tensor_core_wgmma": "flash_attention_wgmma",
-             "tensor_core_wgmma_short": "flash_attention_wgmma_short"}
-    entries = []
-    for route in flash.SOURCES:
-        t, t768 = k[route], buckets["768x768"][route]
-        t640 = buckets["640x640"].get(
-            route, {"max_abs_err": 0.0, "err_over_bound": 0.0, "cases": 0})
-        entries.append({
-            "name": names[route], "route": "cuda",
-            "source": f"arbius_tpu_torch/csrc/{flash.SOURCES[route]}",
-            "replaces": "arbius_tpu/ops/flash.py:34",
-            "launches": launches[route],
-            "launches_node": node_launches[route],
-            "launches_node_run": node_run_launches[route],
-            "max_abs_err": max(t["max_abs_err"], t768["max_abs_err"],
-                               t640["max_abs_err"]),
-            # times: one 512x512 batch's calls (bf16) at timed_at,
-            # summed; see per_route
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "host_ms": t["host_ms"], "host_mean_ms": t["host_mean_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "launches_per_batch": t["launches_per_batch"],
-            "timed_at": t["timed_at"],
-            "bucket_768x768": {key: t768[key] for key in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "host_ms", "host_mean_ms", "launches_per_batch",
-                "timed_at")},
-            # reached only if every check of phase 2 passed
-            "check": {"cases": t["cases"] + t768["cases"]
-                      + t640["cases"],
-                      "buckets": ["512x512", "768x768",
-                                  "640x640 (1600^2, 400^2, 100^2 and "
-                                  "their cross-attentions)"],
-                      "against": "plain version in float32, same inputs",
-                      "bound": bounds[route],
-                      "worst_err_over_bound": max(t["err_over_bound"],
-                                                  t768["err_over_bound"],
-                                                  t640["err_over_bound"]),
-                      "matches_plain": True, "relaunch_identical": True},
-        })
+    entries = kernel_entries(flash, buckets, {
+        "launches": launches, "launches_node": node_launches,
+        "launches_node_run": node_run_launches})
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -50,6 +50,9 @@ _TENSOR_CORE_SHAPES = [(1, 2, 200, 200, 40), (2, 8, 256, 77, 80),
 # the VAE's shape at 512x512, and ragged query and key lengths
 _WIDE_SHAPES = [(4, 1, 4096, 4096, 512), (1, 1, 200, 77, 512),
                 (2, 1, 1000, 1000, 512)]
+# those, and the VAE's at 640x640 and 1024x768 (768x1024's is the same)
+_WGMMA_WIDE_SHAPES = [*_WIDE_SHAPES, (4, 1, 6400, 6400, 512),
+                      (4, 1, 12288, 12288, 512)]
 # the UNet's two large self-attentions at 512x512, lengths that differ,
 # D = 160 at 512x512 and 768x768, D = 80 at 640x640, ragged lengths
 _WGMMA_SHAPES = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
@@ -72,6 +75,8 @@ _SHORT_SHAPES = [(8, 8, 4096, 77, 40), (8, 8, 1024, 77, 80),
       for s in _CUDA_CORE_SHAPES),
     *(("tensor_core", torch.bfloat16, *s) for s in _TENSOR_CORE_SHAPES),
     *(("tensor_core_wide", torch.bfloat16, *s) for s in _WIDE_SHAPES),
+    *(("tensor_core_wgmma_wide", torch.bfloat16, *s)
+      for s in _WGMMA_WIDE_SHAPES),
     *(("tensor_core_wgmma", torch.bfloat16, *s) for s in _WGMMA_SHAPES),
     *(("tensor_core_wgmma_short", torch.bfloat16, *s)
       for s in _SHORT_SHAPES),
@@ -102,12 +107,43 @@ def test_tensor_core_route_is_batch_position_invariant(cuda):
 def test_wide_tensor_core_route_is_batch_position_invariant(cuda, b, h, sq,
                                                             skv, d):
     """Permuting the batch (doubled, so that B = 1 has a neighbour)
-    permutes the output bit for bit."""
+    permutes the output bit for bit (the mma.sync wide route forced; the
+    rule sends these inputs to the wgmma wide route)."""
     q, k, v = _inputs(cuda, 2 * b, h, sq, skv, d, torch.bfloat16, seed=7)
     perm = torch.arange(2 * b, device=cuda).roll(1)
-    assert flash.route_of(q, k, v) == "tensor_core_wide"
+    assert flash.routes_of(q, k, v)[1] == "tensor_core_wide"
+    wide = "tensor_core_wide"
+    assert torch.equal(
+        flash.flash_attention(q[perm], k[perm], v[perm], kernel=wide),
+        flash.flash_attention(q, k, v, kernel=wide)[perm])
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", _WGMMA_WIDE_SHAPES)
+def test_wgmma_wide_route_is_batch_position_invariant(cuda, b, h, sq, skv,
+                                                      d):
+    """Permuting the batch (doubled, so that B = 1 has a neighbour)
+    permutes the output bit for bit: a block's query tile, its cluster's
+    neighbours and which block issued a load leave its arithmetic
+    alone."""
+    q, k, v = _inputs(cuda, 2 * b, h, sq, skv, d, torch.bfloat16, seed=13)
+    perm = torch.arange(2 * b, device=cuda).roll(1)
+    assert flash.route_of(q, k, v) == "tensor_core_wgmma_wide"
     assert torch.equal(flash.flash_attention(q[perm], k[perm], v[perm]),
                        flash.flash_attention(q, k, v)[perm])
+
+
+@pytest.mark.parametrize("s", [4096, 1000])
+def test_wgmma_wide_route_takes_the_vaes_strided_views(cuda, s):
+    """As the VAE hands them over: [B, S, C] projections viewed as
+    [B, 1, S, D]; the output equals the contiguous inputs' bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    x = torch.randn(2, s, 3 * 512, generator=gen, device=cuda).bfloat16()
+    q, k, v = (x[:, :, 512 * i:512 * (i + 1)].unsqueeze(1) for i in range(3))
+    assert flash.route_of(q, k, v) == "tensor_core_wgmma_wide"
+    out = flash.flash_attention(q, k, v)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    _assert_within_bound(out, qc, kc, vc, "tensor_core_wgmma_wide")
+    assert torch.equal(flash.flash_attention(qc, kc, vc), out)
 
 
 @pytest.mark.parametrize("b,h,sq,skv,d", _WGMMA_SHAPES)
@@ -219,6 +255,21 @@ def test_wide_tensor_core_route_refuses_float32(cuda):
         flash.flash_attention(q, q, q, kernel="tensor_core_wide")
     assert flash.flash_attention.launches_by_route["tensor_core_wide"] == (
         before)
+
+
+def test_wgmma_wide_route_refuses_what_the_rule_sends_elsewhere(cuda):
+    """float32, another head dim and a misaligned pointer: a forced call
+    raises and launches nothing."""
+    route = "tensor_core_wgmma_wide"
+    before = flash.flash_attention.launches_by_route[route]
+    f32 = torch.zeros(1, 1, 64, 512, device=cuda)
+    d160 = torch.zeros(1, 1, 64, 160, device=cuda, dtype=torch.bfloat16)
+    off = torch.zeros(64 * 512 + 1, device=cuda,
+                      dtype=torch.bfloat16)[1:].view(1, 1, 64, 512)
+    for q, kv in ((f32, f32), (d160, d160), (off, off)):
+        with pytest.raises(ValueError, match="cannot take"):
+            flash.flash_attention(q, kv, kv, kernel=route)
+    assert flash.flash_attention.launches_by_route[route] == before
 
 
 def test_conv_is_batch_position_invariant(cuda):

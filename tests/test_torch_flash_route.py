@@ -1,18 +1,20 @@
-"""The rule between the five attention kernels (`route`) and the error
+"""The rule between the six attention kernels (`route`) and the error
 bound their outputs are held to (`error_bound`), on the CPU.
 
 The tensor-core kernels (csrc/flash_attn_wgmma.cu for D = 40, 80 and 160
 at any lengths, csrc/flash_attn_wgmma_short.cu for those head dims at up
-to 128 keys, csrc/flash_attn_tc.cu, and csrc/flash_attn_tc_wide.cu for
-D = 512) round the probabilities P to bf16 before P V;
+to 128 keys, csrc/flash_attn_wgmma_wide.cu and csrc/flash_attn_tc_wide.cu
+for D = 512, and csrc/flash_attn_tc.cu) round the probabilities P to
+bf16 before P V;
 `_tensor_core_arithmetic` repeats their arithmetic in plain torch
 (64-key tiles; 128 for the wgmma kernel at D = 40 and 80, 64 at
 D = 160; one tile of 16, 32, 64, 80 or 128 keys for the short one;
 keys padded with zeros to whole
 tiles and masked; online softmax in the log2 domain, P rounded to bf16,
-l summed from the unrounded P; for the wide kernel each tile's keys in
-two halves that share the row max and sum l apart) so that the bound can
-be held against it here. The kernels themselves are checked on
+l summed from the unrounded P; for the mma.sync wide kernel each tile's
+keys in two halves that share the row max and sum l apart; for the wgmma
+wide one 64-key tiles, O's columns in two halves that each compute all
+of S, m and l) so that the bound can be held against it here. The kernels themselves are checked on
 the card (tests/test_torch_cuda.py, chip_smoke.py,
 tools/flash_mutants.py)."""
 from __future__ import annotations
@@ -50,7 +52,7 @@ def test_unet_shapes_take_the_tensor_cores_and_the_vae_does_not():
     S = 4096, D = 80 at S = 1024, D = 160 at S = 256) take the
     tensor_core_wgmma route, its shapes with at most 128 keys (the
     cross-attentions, 64^2 at D = 160) tensor_core_wgmma_short; the
-    VAE's D = 512 takes tensor_core_wide."""
+    VAE's D = 512 takes tensor_core_wgmma_wide."""
     assert len(UNET_SHAPES) == 8
     for shape in UNET_SHAPES:
         want = ("tensor_core_wgmma_short" if shape[3] <= 128
@@ -59,14 +61,14 @@ def test_unet_shapes_take_the_tensor_cores_and_the_vae_does_not():
     vae_shapes = [s[:5] for s in chip_smoke.MAIN_PATH_SHAPES if s[4] > 160]
     assert vae_shapes == [(4, 1, 4096, 4096, 512)]
     assert _route_contiguous(torch.bfloat16, *vae_shapes[0]) == (
-        "tensor_core_wide")
+        "tensor_core_wgmma_wide")
 
 
 def test_chip_smoke_expects_each_main_path_launch_on_its_route():
     assert chip_smoke.expected_launches(torch, flash) == {
         "tensor_core_wgmma": 300, "tensor_core_wgmma_short": 340,
-        "tensor_core": 0,
-        "tensor_core_wide": 1, "cuda_core": 0}
+        "tensor_core_wgmma_wide": 1, "tensor_core": 0,
+        "tensor_core_wide": 0, "cuda_core": 0}
 
 
 def test_main_path_shapes_are_the_512_bucket():
@@ -91,20 +93,21 @@ def test_rule_at_every_bucket(size):
     """At each bucket the calls with at most 128 keys (the
     cross-attentions, 77 keys, among them) take tensor_core_wgmma_short
     and the other UNet calls, at any length, tensor_core_wgmma, so none
-    takes tensor_core; the VAE takes tensor_core_wide."""
+    takes tensor_core; the VAE takes tensor_core_wgmma_wide."""
     shapes = chip_smoke.attention_shapes(*size)
     want = dict.fromkeys(flash.SOURCES, 0)
-    want["tensor_core_wide"] = 1
+    want["tensor_core_wgmma_wide"] = 1
     for b, h, sq, skv, d, count in shapes:
         got = _route_contiguous(torch.bfloat16, b, h, sq, skv, d)
         if d == 512:
-            assert got == "tensor_core_wide"
+            assert got == "tensor_core_wgmma_wide"
             continue
         assert got == ("tensor_core_wgmma_short" if skv <= 128
                        else "tensor_core_wgmma"), (size, sq, skv, d)
         want[got] += count
     assert chip_smoke.expected_launches(torch, flash, shapes) == want
     assert want["tensor_core"] == want["cuda_core"] == 0
+    assert want["tensor_core_wide"] == 0
 
 
 _SIDES = next(row["choices"] for row in json.loads(
@@ -115,11 +118,12 @@ _SIDES = next(row["choices"] for row in json.loads(
 @pytest.mark.parametrize("width", _SIDES)
 def test_no_template_bucket_takes_mma_sync_or_the_cuda_cores(width, height):
     """Every (width, height) the anythingv3 template allows: each of a
-    chunk's attention calls takes a wgmma route or the wide one."""
+    chunk's attention calls takes a wgmma route."""
     launches = chip_smoke.expected_launches(
         torch, flash, chip_smoke.attention_shapes(width, height))
     assert launches["tensor_core"] == launches["cuda_core"] == 0
-    assert launches["tensor_core_wide"] == 1
+    assert launches["tensor_core_wide"] == 0
+    assert launches["tensor_core_wgmma_wide"] == 1
     assert sum(launches.values()) == chip_smoke.LAUNCHES_PER_CHUNK
 
 
@@ -129,8 +133,8 @@ def test_768_bucket_shapes():
     assert chip_smoke.expected_launches(
         torch, flash, chip_smoke.BUCKET_768_SHAPES) == {
         "tensor_core_wgmma": 320, "tensor_core_wgmma_short": 320,
-        "tensor_core": 0,
-        "tensor_core_wide": 1, "cuda_core": 0}
+        "tensor_core_wgmma_wide": 1, "tensor_core": 0,
+        "tensor_core_wide": 0, "cuda_core": 0}
 
 
 def test_640_bucket_ragged_shapes():
@@ -232,7 +236,7 @@ def test_vae_strided_views_take_the_wide_tensor_cores(monkeypatch):
     with torch.no_grad():
         out = mid(torch.randn(2, 512, 4, 4).bfloat16())
     assert out.shape == (2, 512, 4, 4)
-    assert seen == ["tensor_core_wide"]
+    assert seen == ["tensor_core_wgmma_wide"]
 
 
 @pytest.mark.parametrize("case", [
@@ -273,7 +277,7 @@ def test_rule_at_d512_takes_the_wide_tensor_cores_only_for_aligned_bf16(
         strides[1] = 64 * 512 + 4
     elif case == "pointer":
         pointer = 256 + 2            # one bf16 element off 16 bytes
-    want = "tensor_core_wide" if case == "bfloat16" else "cuda_core"
+    want = "tensor_core_wgmma_wide" if case == "bfloat16" else "cuda_core"
     assert flash.route(dtype, d, strides, [256, pointer, 256], 64,
                        64) == want
 
@@ -303,7 +307,9 @@ def test_route_of_reads_real_tensors():
     assert flash.route_of(q.float(), q.float(), q.float()) == "cuda_core"
     y = torch.zeros(1 * 64 * 512 + 1, dtype=torch.bfloat16)
     w = y[:-1].view(1, 1, 64, 512)
-    assert flash.route_of(w, w, w) == "tensor_core_wide"
+    assert flash.route_of(w, w, w) == "tensor_core_wgmma_wide"
+    assert flash.routes_of(w, w, w) == [
+        "tensor_core_wgmma_wide", "tensor_core_wide", "cuda_core"]
     assert flash.route_of(w, w, y[1:].view(1, 1, 64, 512)) == "cuda_core"
 
 
@@ -336,7 +342,7 @@ def _tensor_core_arithmetic(q, k, v, scale_factor=1.0, tile=64,
     part = tile // halves
     m = torch.full(q.shape[:3], -math.inf)
     l = torch.zeros((halves, *q.shape[:3]))
-    o = torch.zeros(q.shape)
+    o = torch.zeros((*q.shape[:3], v.shape[-1]))
     for kv0 in range(0, kf.shape[2], tile):
         s = qf @ kf[:, :, kv0:kv0 + tile].transpose(-1, -2)
         if mask_pad:
@@ -447,31 +453,43 @@ def test_short_wgmma_faults_break_the_bound(d, skv, fault):
     assert not _within(out, q, k, v, "tensor_core_wgmma_short")
 
 
-# (D, S_kv) -> the wgmma kernel's key tile: 64 keys at D = 160, 128 at
-# D = 40 and 80; S_kv not a multiple of it, so the last tile is ragged
+# (D, S_kv) -> the wgmma kernels' key tile: 64 keys at D = 160 and 512
+# (the wide kernel), 128 at D = 40 and 80; S_kv not a multiple of it, so
+# the last tile is ragged. The fault cases leave out one key alone, whose
+# softmax is 1 at any scale.
 _RAGGED = [(40, 200), (80, 333), (160, 100), (160, 200), (160, 333)]
+_RAGGED_WIDE = [(512, 48), (512, 77), (512, 100), (512, 130)]
 
 
-@pytest.mark.parametrize("d,skv", _RAGGED)
+def _wgmma_tile_and_route(d):
+    if d == 512:
+        return 64, "tensor_core_wgmma_wide"
+    return 64 if d == 160 else 128, "tensor_core_wgmma"
+
+
+@pytest.mark.parametrize("d,skv", _RAGGED + [(512, 1)] + _RAGGED_WIDE)
 @pytest.mark.parametrize("sq", [100, 144])
 def test_ragged_wgmma_arithmetic_lies_within_its_bound(d, skv, sq):
-    """The wgmma kernel's arithmetic at ragged lengths: key tiles of 128
-    (64 at D = 160), the last one masked past S_kv; held to the
-    tensor-core bound."""
+    """The wgmma kernels' arithmetic at ragged lengths: key tiles of 128
+    (64 at D = 160 and 512), the last one masked past S_kv, the last
+    query tile past Sq; held to the tensor-core bound."""
     q, k, v = _qkv(2, 2, sq, skv, d, seed=d + skv + sq)
-    out = _tensor_core_arithmetic(q, k, v, tile=64 if d == 160 else 128)
-    assert _within(out, q, k, v, "tensor_core_wgmma")
+    tile, route = _wgmma_tile_and_route(d)
+    out = _tensor_core_arithmetic(q, k, v, tile=tile)
+    assert _within(out, q, k, v, route)
     torch.testing.assert_close(
-        flash.error_bound(q, k, v, "tensor_core_wgmma"),
+        flash.error_bound(q, k, v, route),
         flash.error_bound(q, k, v, "tensor_core"), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("fault", ["scale_1pct_high", "drops_last_key",
                                    "unmasked_pad"])
-@pytest.mark.parametrize("d,skv", _RAGGED)
+@pytest.mark.parametrize("d,skv", _RAGGED + _RAGGED_WIDE)
 def test_ragged_wgmma_faults_break_the_bound(d, skv, fault):
+    """tools/flash_mutants.py's two faults, and the mask of the zero
+    keys TMA pads the last tile with left out."""
     q, k, v = _qkv(2, 2, 100, skv, d, seed=d + skv)
-    tile = 64 if d == 160 else 128
+    tile, route = _wgmma_tile_and_route(d)
     if fault == "scale_1pct_high":
         out = _tensor_core_arithmetic(q, k, v, scale_factor=1.01, tile=tile)
     elif fault == "drops_last_key":
@@ -479,7 +497,7 @@ def test_ragged_wgmma_faults_break_the_bound(d, skv, fault):
                                       tile=tile)
     else:
         out = _tensor_core_arithmetic(q, k, v, tile=tile, mask_pad=False)
-    assert not _within(out, q, k, v, "tensor_core_wgmma")
+    assert not _within(out, q, k, v, route)
 
 
 @pytest.mark.parametrize("sq", [48, 200])
@@ -503,6 +521,50 @@ def test_wide_route_is_held_to_the_tensor_core_bound():
     q, k, v = _qkv(2, 1, 64, 77, 512, seed=2)
     assert torch.equal(flash.error_bound(q, k, v, "tensor_core_wide"),
                        flash.error_bound(q, k, v, "tensor_core"))
+
+
+def _wgmma_wide_arithmetic(q, k, v, **kw):
+    """The wgmma wide kernel's order: 64-key tiles; O's 512 columns in two
+    halves of 256, one per consumer warpgroup, each computing all of S,
+    its own m and l over every key of a tile, and P V for its columns."""
+    half = v.shape[-1] // 2
+    return torch.cat([_tensor_core_arithmetic(q, k, v[..., :half], **kw),
+                      _tensor_core_arithmetic(q, k, v[..., half:], **kw)],
+                     dim=-1)
+
+
+def test_wgmma_wide_halves_compute_what_one_pass_does():
+    """Each column half repeats all of S, m and l: its output equals the
+    columns of one pass over all 512 (the split costs products, not
+    bits), so the ragged wgmma tests hold the one pass at D = 512 to the
+    bound and to the faults."""
+    q, k, v = _qkv(2, 1, 100, 130, 512, seed=3)
+    torch.testing.assert_close(_wgmma_wide_arithmetic(q, k, v),
+                               _tensor_core_arithmetic(q, k, v),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("height", _SIDES)
+@pytest.mark.parametrize("width", _SIDES)
+def test_rule_sends_every_vae_bucket_to_the_wgmma_wide_route(width,
+                                                             height):
+    """The VAE's call at each (width, height) the template allows, in
+    its [B, 1, S, 512] views: the wgmma wide route first, the mma.sync
+    wide one forcible beside it, the CUDA cores last."""
+    [(b, h, sq, skv, d, count)] = [
+        s for s in chip_smoke.attention_shapes(width, height) if s[4] == 512]
+    assert (b, h, d, count) == (4, 1, 512, 1)
+    assert sq == skv == (width // 8) * (height // 8)
+    strides = list(_contiguous(b, h, sq, d)) * 3
+    assert flash.routes(torch.bfloat16, d, strides, [256] * 3, sq, skv) == [
+        "tensor_core_wgmma_wide", "tensor_core_wide", "cuda_core"]
+    for dtype, ptr, stride in ((torch.float32, 256, d),
+                               (torch.bfloat16, 258, d),
+                               (torch.bfloat16, 256, d + 4)):
+        odd = list(strides)
+        odd[2] = stride
+        assert flash.route(dtype, d, odd, [256, ptr, 256], sq,
+                           skv) == "cuda_core"
 
 
 def test_cuda_core_bound_is_one_bf16_rounding():
@@ -551,7 +613,7 @@ def test_reset_launches_zeroes_every_count():
     assert flash.flash_attention.launches == 0
     assert flash.flash_attention.launches_by_route == {
         "tensor_core_wgmma": 0, "tensor_core_wgmma_short": 0,
-        "tensor_core": 0,
+        "tensor_core_wgmma_wide": 0, "tensor_core": 0,
         "tensor_core_wide": 0, "cuda_core": 0}
 
 
@@ -596,3 +658,39 @@ def test_per_route_sums_each_route_and_the_routes_forced_onto_its_calls():
     assert tc["ms"] == pytest.approx(21.0) and tc["forced"] == {}
     assert set(out) == {"tensor_core_wgmma_short", "tensor_core_wgmma",
                         "tensor_core"}
+
+
+def test_kernel_entries_list_every_route_with_the_contracts_keys():
+    """chip_smoke's `kernels` line from phase 2's summaries: one entry per
+    route with the keys the line must carry, launches from each run,
+    per-bucket times where a route was timed there."""
+    buckets = {}
+    for bucket, shapes in chip_smoke.kernel_buckets():
+        lines = []
+        for b, h, sq, skv, d, calls in shapes:
+            routes = flash.routes(torch.bfloat16, d, [8] * 9, [256] * 3, sq,
+                                  skv)
+            lines += [_timed_line(r, (b, h, sq, skv, d), r == routes[0],
+                                  0.1, 20.0, calls) for r in routes]
+        buckets[bucket] = chip_smoke.per_route(lines)
+    counts = chip_smoke.expected_launches(torch, flash)
+    entries = chip_smoke.kernel_entries(flash, buckets, {
+        "launches": counts, "launches_node": counts,
+        "launches_node_run": counts})
+    assert [e["source"].rsplit("/", 1)[1] for e in entries] == list(
+        flash.SOURCES.values())
+    for e in entries:
+        assert {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"} <= set(e)
+        assert e["route"] == "cuda"
+        assert e["replaces"] == "arbius_tpu/ops/flash.py:34"
+    wide = next(e for e in entries
+                if e["name"] == "flash_attention_wgmma_wide")
+    assert wide["launches"] == 1 and wide["launches_per_batch"] == 1
+    for s in (256, 6400, 12288):
+        got = wide[f"bucket_VAE S={s}"]
+        assert got["launches_per_batch"] == 1
+        assert set(got["forced"]) == {"tensor_core_wide", "cuda_core"}
+    old = next(e for e in entries if e["name"] == "flash_attention_tc_wide")
+    assert old["launches"] == 0

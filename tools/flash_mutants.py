@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Show that chip_smoke.py's kernel check catches a subtly wrong kernel,
-on each of the five attention routes.
+on each of the six attention routes.
 
     python3 tools/flash_mutants.py
 
 Needs one CUDA card and nvcc; imports torch and the port only. For each
 kernel source (csrc/flash_attn_wgmma.cu, the wgmma route,
 csrc/flash_attn_wgmma_short.cu, the short wgmma route,
+csrc/flash_attn_wgmma_wide.cu, the wgmma wide route,
 csrc/flash_attn_tc.cu, the mma.sync tensor-core route,
 csrc/flash_attn_tc_wide.cu, the wide tensor-core route, and
 csrc/flash_attn.cu, the CUDA-core route) builds the source
@@ -14,8 +15,8 @@ and copies of it with one deliberate fault each (MUTANTS) into a
 temporary directory, all at once, and runs each build at the bf16
 main-path shapes its kernel takes (`ops.flash.routes_of`: the short
 wgmma route at the 5 with at most 128 keys, the wgmma and the mma.sync
-routes at the 8 UNet shapes, the wide one at the VAE's, the CUDA-core
-route at all 9) through
+routes at the 8 UNet shapes, the two wide ones at the VAE's, the
+CUDA-core route at all 9) through
 chip_smoke.py's check: the kernel against the plain
 version in float32 on the same inputs, within ops/flash.py's
 `error_bound` for the route. For each build it prints one JSON line: the
@@ -53,6 +54,7 @@ _TENSOR_CORE_FAULTS = {
 MUTANTS = {
     "tensor_core_wgmma": _TENSOR_CORE_FAULTS,
     "tensor_core_wgmma_short": _TENSOR_CORE_FAULTS,
+    "tensor_core_wgmma_wide": _TENSOR_CORE_FAULTS,
     "tensor_core": _TENSOR_CORE_FAULTS,
     "tensor_core_wide": _TENSOR_CORE_FAULTS,
     "cuda_core": {
