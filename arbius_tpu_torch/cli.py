@@ -89,23 +89,27 @@ def record_golden(model, raw: dict, seed: int, *, canonical_batch: int,
 
 
 def cmd_record_golden(args) -> int:
-    """Compute anythingv3's golden CID for the boot self-test
-    (`MinerNode.boot`) on this card and build, as the reference's record-golden does on its
-    platform (input {prompt: "arbius test cat"}, seed 1337)."""
+    """Compute a model's golden CID for the boot self-test
+    (`MinerNode.boot`) on this card and build, as the reference's
+    record-golden does on its platform (input {prompt: "arbius test
+    cat"}, seed 1337)."""
     from arbius_tpu_torch.node.config import MiningConfig, ModelConfig
     from arbius_tpu_torch.node.factory import build_registry
 
-    raw = (json.loads(args.input) if args.input
-           else {"prompt": "arbius test cat", "negative_prompt": ""})
+    raw = json.loads(args.input) if args.input else {
+        "prompt": "arbius test cat",
+        # the kandinsky2 template has no negative prompt
+        **({"negative_prompt": ""} if args.template == "anythingv3"
+           else {})}
     mid = "0x" + "00" * 32
-    mc = ModelConfig(id=mid, template="anythingv3", tiny=args.tiny,
+    mc = ModelConfig(id=mid, template=args.template, tiny=args.tiny,
                      weights_dtype=args.weights_dtype)
     model = build_registry(MiningConfig(models=(mc,)),
                            device=args.device).get(mid)
     rec = record_golden(model, raw, args.seed,
                         canonical_batch=args.canonical_batch,
                         device=args.device)
-    print(json.dumps({"template": "anythingv3", "tiny": args.tiny,
+    print(json.dumps({"template": args.template, "tiny": args.tiny,
                       "weights_dtype": args.weights_dtype,
                       "canonical_batch": args.canonical_batch, **rec},
                      sort_keys=True))
@@ -483,7 +487,9 @@ def main(argv=None) -> int:
 
     sp = sub.add_parser(
         "record-golden",
-        help="compute anythingv3's boot self-test golden CID on this build")
+        help="compute a model's boot self-test golden CID on this build")
+    sp.add_argument("--template", default="anythingv3",
+                    choices=["anythingv3", "kandinsky2"])
     sp.add_argument("--input", help='hydratable input JSON (default: '
                                     '{"prompt": "arbius test cat", ...})')
     sp.add_argument("--seed", type=int, default=1337)  # index.ts:988

@@ -1,4 +1,5 @@
-"""Shared neural building blocks of the SD-1.5 family, in PyTorch.
+"""Shared neural building blocks of the SD-1.5 and Kandinsky-2 families,
+in PyTorch.
 
 Twin of arbius_tpu/models/common.py. Differences of layout, not of math:
 
@@ -116,27 +117,52 @@ class TimestepEmbedding(nn.Module):
 class ResnetBlock(nn.Module):
     """GN-SiLU-conv x2 with timestep conditioning and learned skip (NCHW).
 
-    The reference's `scale_shift` and `resample` variants serve other
-    families and are not ported yet; SD-1.5 uses neither."""
+    `scale_shift=True` is the FiLM form (Kandinsky's decoder): `Dense_0`
+    predicts 2 x out_ch values, split into (scale, shift) and applied as
+    h * (1 + scale) + shift after the second GroupNorm, in place of the
+    additive injection before it. `resample` "down" (a 2x2 average pool)
+    or "up" (nearest 2x) acts on both the branch and the skip between
+    the first norm and conv. The average pool sums in float32 and rounds
+    once to the input dtype; flax's `avg_pool` sums in the input dtype,
+    which differs only for bf16 activations."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype, temb_dim: int | None
-                 = None, norm_eps: float = 1e-5, device=None):
+                 = None, norm_eps: float = 1e-5, device=None,
+                 scale_shift: bool = False, resample: str = "none"):
         super().__init__()
         self.GroupNorm32_0 = GroupNorm32(in_ch, norm_eps, device=device)
         self.Conv_0 = conv3x3(in_ch, out_ch, dtype, device)
         if temb_dim is not None:
-            self.Dense_0 = nn.Linear(temb_dim, out_ch, dtype=dtype,
-                                     device=device)
+            self.Dense_0 = nn.Linear(temb_dim, out_ch * (2 if scale_shift
+                                                         else 1),
+                                     dtype=dtype, device=device)
         self.GroupNorm32_1 = GroupNorm32(out_ch, norm_eps, device=device)
         self.Conv_1 = conv3x3(out_ch, out_ch, dtype, device)
         self.skip_proj = (conv1x1(in_ch, out_ch, dtype, device)
                           if in_ch != out_ch else None)
+        self.scale_shift, self.resample = scale_shift, resample
+
+    def _resample(self, x: torch.Tensor) -> torch.Tensor:
+        if self.resample == "down":
+            return F.avg_pool2d(x.float(), 2).to(x.dtype)
+        if self.resample == "up":
+            return F.interpolate(x, scale_factor=2, mode="nearest")
+        return x
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor | None = None):
-        h = self.Conv_0(F.silu(self.GroupNorm32_0(x)))
+        h = self._resample(F.silu(self.GroupNorm32_0(x)))
+        x = self._resample(x)
+        h = self.Conv_0(h)
+        t = None
         if temb is not None:
-            h = h + self.Dense_0(F.silu(temb))[:, :, None, None]
-        h = self.Conv_1(F.silu(self.GroupNorm32_1(h)))
+            t = self.Dense_0(F.silu(temb))[:, :, None, None]
+            if not self.scale_shift:
+                h = h + t
+        h = self.GroupNorm32_1(h)
+        if t is not None and self.scale_shift:
+            scale, shift = t.chunk(2, dim=1)
+            h = h * (1 + scale) + shift
+        h = self.Conv_1(F.silu(h))
         if self.skip_proj is not None:
             x = self.skip_proj(x)
         return x + h

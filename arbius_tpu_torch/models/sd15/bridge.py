@@ -1,22 +1,26 @@
-"""Weights for the port's SD-1.5 modules: from a JAX parameter tree, or a
-seeded init of the same distributions.
+"""Weights for the port's modules: from a JAX parameter tree, or a seeded
+init of the same distributions. Shared by the SD-1.5 and Kandinsky-2
+families.
 
 `params_from_jax` takes the reference's `init_params` tree as nested dicts
 of numpy arrays (the caller converts; this module never imports JAX) and
-returns a `state_dict` for `SD15Models`. The port's modules carry the
-flax names, so a key is the flax path joined with '.', and only the leaves
-change:
+returns a `state_dict` for the family's module bundle (`SD15Models`,
+`Kandinsky2Models`). The port's modules carry the flax names, so a key is
+the flax path joined with '.', and only the leaves change:
 
   - Dense kernel [in, out]          -> Linear weight [out, in]
   - Conv kernel [kH, kW, I, O]      -> Conv2d weight [O, I, kH, kW]
   - DenseGeneral q/k/v [W, H, D]    -> Linear weight [H*D, W]; bias [H, D] -> [H*D]
   - DenseGeneral out [H, D, W]      -> Linear weight [W, H*D]
   - GroupNorm/LayerNorm `scale`, Embed `embedding` -> `weight`
+  - any other parameter (`pos_embed`, the prior's rank-3 `pos_embed` and
+    `prd_embed`, the top-level `prior_stats`) keeps its name and shape.
 
 `init_params` draws flax's default distributions for the same keys from
-an explicit `torch.Generator` (lecun-normal kernels, zero biases, unit
-norm scales, embeddings normal(1/sqrt(width)), `pos_embed` normal(0.01)):
-random weights at full width that keep a 20-step image finite.
+an explicit `torch.Generator` (lecun-normal kernels, zero biases and other
+parameters, unit norm scales, embeddings normal(1/sqrt(width)), and
+`EMBED_STD`'s positional and query embeddings normal(std)): random
+weights at full width that keep a 20-step image finite.
 """
 from __future__ import annotations
 
@@ -48,8 +52,8 @@ def _convert(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """JAX SD-1.5 parameter tree (nested dicts of numpy arrays) -> the
-    port's state_dict (float32 CPU tensors)."""
+    """JAX parameter tree (nested dicts of numpy arrays) -> the port's
+    state_dict (float32 CPU tensors)."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -63,6 +67,12 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
     walk(tree, ())
     return out
+
+
+# flax's normal(std) initialisers, by state-dict key suffix (the first
+# that matches): the prior's embeddings, then the text towers'
+EMBED_STD = (("prior.pos_embed", 0.02), ("prior.prd_embed", 0.02),
+             ("pos_embed", 0.01))
 
 
 def _fan_in(shape: torch.Size) -> int:
@@ -85,8 +95,10 @@ def init_params(models: torch.nn.Module, seed: int,
     for name, ref in models.state_dict().items():
         t = torch.empty(ref.shape, dtype=torch.float32, device=device)
         leaf = name.rsplit(".", 1)[-1]
-        if name.endswith("pos_embed"):
-            t.normal_(0.0, 0.01, generator=gen)
+        embed_std = next((s for suffix, s in EMBED_STD
+                          if name.endswith(suffix)), None)
+        if embed_std is not None:
+            t.normal_(0.0, embed_std, generator=gen)
         elif name.endswith("token_embed.weight"):
             t.normal_(0.0, 1.0 / math.sqrt(ref.shape[1]), generator=gen)
         elif leaf == "weight" and ref.dim() >= 2:

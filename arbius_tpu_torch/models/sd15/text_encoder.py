@@ -2,9 +2,9 @@
 
 Twin of arbius_tpu/models/sd15/text_encoder.py. ViT-L/14 text tower
 topology: vocab 49408, 77 positions, width 768, 12 layers, 12 heads,
-quick-gelu MLP, causal mask, final LayerNorm. (The reference's `act`
-option, an exact-gelu MLP for OpenCLIP towers, serves other families and
-is not ported yet.)
+quick-gelu MLP, causal mask, final LayerNorm. `act="gelu"` gives the
+exact erf gelu MLP of the OpenCLIP towers (Kandinsky-2's bigG text
+tower).
 
 The reference's `nn.SelfAttention` has biased query/key/value/out
 projections (flax DenseGeneral kernels ``[W, heads, head_dim]`` and
@@ -19,6 +19,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -29,6 +30,7 @@ class TextEncoderConfig:
     width: int = 768
     layers: int = 12
     heads: int = 12
+    act: str = "quick_gelu"  # ViT-L towers; open_clip bigG towers use "gelu"
     dtype: str = "bfloat16"
 
     @property
@@ -79,12 +81,13 @@ class _EncoderLayer(nn.Module):
                                  device=device)
         self.Dense_1 = nn.Linear(cfg.width * 4, cfg.width, dtype=dt,
                                  device=device)
+        self.act = quick_gelu if cfg.act == "quick_gelu" else F.gelu
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         h = self.LayerNorm_0(x.float()).to(x.dtype)
         x = x + self.attn(h, mask)
         h = self.LayerNorm_1(x.float()).to(x.dtype)
-        return x + self.Dense_1(quick_gelu(self.Dense_0(h)))
+        return x + self.Dense_1(self.act(self.Dense_0(h)))
 
 
 class TextEncoder(nn.Module):

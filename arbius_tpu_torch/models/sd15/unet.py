@@ -40,6 +40,7 @@ class UNetConfig:
     head_dim: int | None = None   # set → heads vary per level (ch // head_dim)
     context_dim: int = 768
     transformer_depth: int = 1
+    time_scale_shift: bool = False  # FiLM-style resnet conditioning
     dtype: str = "bfloat16"
 
     @property
@@ -71,6 +72,7 @@ class UNet2DCondition(nn.Module):
         dt = cfg.tdtype
         bc = cfg.block_channels
         temb_dim = bc[0] * 4
+        ss = cfg.time_scale_shift
         self.TimestepEmbedding_0 = TimestepEmbedding(bc[0], temb_dim, dt,
                                                      device)
         self.conv_in = conv3x3(cfg.in_channels, bc[0], dt, device)
@@ -85,7 +87,7 @@ class UNet2DCondition(nn.Module):
             for j in range(cfg.layers_per_block):
                 self.add_module(f"down_{level}_res_{j}",
                                 ResnetBlock(cur, ch, dt, temb_dim,
-                                            device=device))
+                                            device=device, scale_shift=ss))
                 cur = ch
                 if cfg.attention_levels[level]:
                     self.add_module(f"down_{level}_attn_{j}", transformer(ch))
@@ -93,17 +95,19 @@ class UNet2DCondition(nn.Module):
             if level < len(bc) - 1:
                 self.add_module(f"down_{level}_ds", Downsample(ch, dt, device))
                 skips.append(ch)
-        self.mid_res_0 = ResnetBlock(cur, bc[-1], dt, temb_dim, device=device)
+        self.mid_res_0 = ResnetBlock(cur, bc[-1], dt, temb_dim, device=device,
+                                     scale_shift=ss)
         self.mid_attn = transformer(bc[-1])
         self.mid_res_1 = ResnetBlock(bc[-1], bc[-1], dt, temb_dim,
-                                     device=device)
+                                     device=device, scale_shift=ss)
         cur = bc[-1]
         for level in reversed(range(len(bc))):
             ch = bc[level]
             for j in range(cfg.layers_per_block + 1):
                 self.add_module(f"up_{level}_res_{j}",
                                 ResnetBlock(cur + skips.pop(), ch, dt,
-                                            temb_dim, device=device))
+                                            temb_dim, device=device,
+                                            scale_shift=ss))
                 cur = ch
                 if cfg.attention_levels[level]:
                     self.add_module(f"up_{level}_attn_{j}", transformer(ch))

@@ -1,11 +1,12 @@
 """Model registry + the deterministic solve path (inference -> bytes ->
 CID), for the port's runners.
 
-Twin of the SD-1.5 half of arbius_tpu/node/solver.py: `RegisteredModel`,
+Twin of the image half of arbius_tpu/node/solver.py: `RegisteredModel`,
 `ModelRegistry`, `bucket_key`/`bucket_mode`, `chunk_items`,
 `solve_files_batch` (canonical-batch padding and the one-deep
 dispatch/finalize overlap), `solve_cid`/`solve_cid_batch` (with
-`evilmode`), and `SD15Runner`, under the reference's obs spans.
+`evilmode`), `SD15Runner` and `Kandinsky2Runner`, under the reference's
+obs spans.
 
 Runners must be deterministic in (input, seed): the CID is what gets
 keccak'd into the on-chain commitment. cuBLAS and cuDNN choose kernels by
@@ -174,6 +175,19 @@ def solve_cid_batch(model: RegisteredModel, items: list[tuple[dict, int]],
                 for files in files_list]
 
 
+def _to_host(images: torch.Tensor):
+    """Queue the images' copy to pinned host memory behind the card's
+    work and record an event after it, so `finalize` waits for this chunk
+    only and not for a chunk queued after it."""
+    if images.device.type != "cuda":
+        return images, None
+    host = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
+    host.copy_(images, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
 class SD15Runner:
     """anythingv3-class runner: SD-1.5 pipeline -> deterministic PNG.
 
@@ -196,12 +210,10 @@ class SD15Runner:
         return self.finalize(self.dispatch(items), len(items))
 
     def dispatch(self, items: list[tuple[dict, int]]):
-        """Queue the bucket on the card and return without waiting for it.
-        The images' copy to the host is queued behind it, with an event
-        recorded after the copy, so `finalize` waits for this chunk only
-        and not for a chunk queued after it."""
+        """Queue the bucket on the card and return without waiting for it
+        (`_to_host`)."""
         first = items[0][0]
-        images = self.pipeline.generate(
+        return _to_host(self.pipeline.generate(
             prompts=[h["prompt"] for h, _ in items],
             negative_prompts=[h.get("negative_prompt", "") for h, _ in items],
             seeds=[s for _, s in items],
@@ -212,14 +224,7 @@ class SD15Runner:
                             for h, _ in items],
             scheduler=first.get("scheduler", "DDIM"),
             as_device=True,
-        )
-        if images.device.type != "cuda":
-            return images, None
-        host = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
-        host.copy_(images, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        ))
 
     def finalize(self, dispatched, n_real: int) -> list[dict]:
         """Dispatched chunk -> per-item encoded files (waits for the
@@ -241,3 +246,35 @@ class SD15Runner:
             int(hydrated.get("width", 512)),
             int(hydrated.get("num_inference_steps", 20)),
             hydrated.get("scheduler", "DDIM"))
+
+
+class Kandinsky2Runner(SD15Runner):
+    """kandinsky2-template runner: prior + decoder + MOVQ -> deterministic
+    PNG.
+
+    Template variables (templates/data/kandinsky2.json): prompt,
+    width/height in {768, 1024}; output out-1.png. The defaults are the
+    reference's: 50 steps, guidance 4.0, DDIM (no template variable
+    chooses the scheduler)."""
+
+    def dispatch(self, items: list[tuple[dict, int]]):
+        first = items[0][0]
+        return _to_host(self.pipeline.generate(
+            prompts=[h["prompt"] for h, _ in items],
+            negative_prompts=None,
+            seeds=[s for _, s in items],
+            width=int(first.get("width", 768)),
+            height=int(first.get("height", 768)),
+            num_inference_steps=int(first.get("num_inference_steps", 50)),
+            guidance_scale=[float(h.get("guidance_scale", 4.0))
+                            for h, _ in items],
+            as_device=True,
+        ))
+
+    def cache_tag(self, hydrated: dict, batch: int) -> str:
+        """The bucket tag a dispatch of this task would use; defaults
+        mirror `dispatch` exactly."""
+        return self.pipeline.bucket_tag(
+            batch, int(hydrated.get("height", 768)),
+            int(hydrated.get("width", 768)),
+            int(hydrated.get("num_inference_steps", 50)), "DDIM")

@@ -1,5 +1,6 @@
 """Template/schema engine — a copy of the reference's
-`arbius_tpu/templates/engine.py`, shipping the anythingv3 template."""
+`arbius_tpu/templates/engine.py`, shipping the anythingv3 and kandinsky2
+templates."""
 from arbius_tpu_torch.templates.engine import (
     FilterResult,
     HydrationError,

@@ -24,7 +24,8 @@ its own lines with timings:
      640x640 bucket's shapes whose lengths those two lack (1600^2 at
      D = 80, 400^2 and 100^2 at D = 160, and their cross-attentions),
      and the VAE's call at the buckets whose length those lack (S = 256
-     at 128x128, 6400 at 640x640, 12288 at 1024x768 and 768x1024):
+     at 128x128, 6400 at 640x640, 12288 at 1024x768 and 768x1024), and
+     kandinsky2's MoVQ call at 1024x1024 (S = 16384, B = 4, D = 512):
      every route that takes the shape (`ops.flash.routes_of`): the
      rule's choice, and forced beside it the wgmma route at the short
      one's shapes, the mma.sync route at every UNet shape, the mma.sync
@@ -80,10 +81,25 @@ its own lines with timings:
      seconds from the first tick to the last reveal and claim, the
      stage seconds, the seconds per signed transaction and sol/h beside
      phases 4 and 6.
+  8. kandinsky2: the reference miner's flagship template at full width
+     (seeded random weights, bf16): six template inputs at 768x768 (50
+     steps, DDIM, guidance 4.0) solved at canonical batch 4, with CIDv0s,
+     commitments, finite non-constant images and one flash launch per
+     chunk, on the wgmma wide route (MoVQ's mid attention); a fresh
+     pipeline re-solves them in other chunks with the same CIDs, one
+     chunk traced by torch.profiler (kernels per chunk, device busy and
+     idle share); one task keeps its CID among different neighbours at
+     1024x1024 and 768x1024 (4 steps); a MinerNode on LocalChain boots
+     with arbius_tpu_torch/goldens/kandinsky2.h100.bfloat16.json where
+     the build matches (re-recorded where it differs), passes its
+     self-test, mines the six tasks through claim, and each on-chain CID
+     equals the main path's. Prints sol/h, p50 per chunk, device seconds
+     per stage (text + prior, decoder loop, MoVQ) and the host's PNG +
+     CID seconds.
 
 Any failed check raises and the exit code is not 0. The last lines are
-the card, a `kernels` JSON line (with each route's launches in phase 4,
-phase 6 and phase 7) and `{"ok": true, "device": {...}}`.
+the card, a `kernels` JSON line (with each route's launches in phases
+4, 6, 7 and 8) and `{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, where CUDA is not available.
 """
 from __future__ import annotations
@@ -156,6 +172,26 @@ GOLDEN_INPUT = {"prompt": "arbius test cat", "negative_prompt": "",
 GOLDEN_SEED = 1337
 BUILD_FIELDS = ("card", "torch", "cuda", "cudnn")
 TASK_FEE = 10           # AIUS per on-chain task of phase 6
+# phase 8, kandinsky2: the template's default bucket at the runner's
+# defaults (50 steps, DDIM, guidance 4.0), and the buckets of the
+# neighbour check beside it (at K2_BUCKET_STEPS)
+K2_SIZE = 768
+K2_BUCKETS = ((1024, 1024), (768, 1024))
+K2_BUCKET_STEPS = 4
+K2_GOLDEN_FILE = "arbius_tpu_torch/goldens/kandinsky2.h100.bfloat16.json"
+K2_GOLDEN_INPUT = {"prompt": "arbius test cat", "width": K2_SIZE,
+                   "height": K2_SIZE}
+
+
+def movq_attention_shapes(width: int, height: int,
+                          batch: int = CANONICAL_BATCH) -> tuple:
+    """(B, H, Sq, Skv, D, launches per chunk) of kandinsky2's flash
+    calls at `width` x `height`: MoVQ's mid-block attention, one head of
+    D = 512 over the latent's tokens, once per chunk. The prior's and the
+    text tower's attentions take a mask and the decoder's added-KV
+    attention is a matmul, as in the reference: none reaches ops/flash."""
+    tokens = (width // 8) * (height // 8)
+    return ((batch, 1, tokens, tokens, 512, 1),)
 
 
 def expected_launches(torch, flash, shapes=MAIN_PATH_SHAPES
@@ -389,10 +425,13 @@ def per_route(lines) -> dict:
 def kernel_buckets() -> tuple:
     """Phase 2's (bucket, shapes) sets: the main path (512x512), the
     template's default bucket (768x768), the 640x640 bucket's ragged
-    UNet shapes, and the VAE's call at each length those lack."""
+    UNet shapes, the VAE's call at each length those lack, and
+    kandinsky2's MoVQ call at 1024x1024 (S = 16384; its 768x768 and
+    768x1024 calls are the VAE's S = 9216 and 12288)."""
     return (("512x512", MAIN_PATH_SHAPES), ("768x768", BUCKET_768_SHAPES),
             ("640x640", BUCKET_640_RAGGED_SHAPES),
-            *((f"VAE S={s[2]}", (s,)) for s in VAE_BUCKET_SHAPES))
+            *((f"VAE S={s[2]}", (s,)) for s in VAE_BUCKET_SHAPES),
+            ("MoVQ S=16384", movq_attention_shapes(1024, 1024)))
 
 
 def phase_kernels(torch, flash) -> dict:
@@ -416,7 +455,7 @@ def kernel_entries(flash, buckets: dict, launches: dict) -> list[dict]:
     """The `kernels` line: per route, phase 2's summaries (`buckets`, as
     `phase_kernels` returns them; times per 512x512 batch, and per batch
     of each other bucket timed) beside `launches`, each a name mapped to
-    the route's launch counts of one run (phases 4, 6 and 7)."""
+    the route's launch counts of one run (phases 4, 6, 7 and 8)."""
     tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
     names = {"cuda_core": "flash_attention",
              "tensor_core": "flash_attention_tc",
@@ -994,6 +1033,392 @@ def node_run_world(inputs: list[dict], *, device: str, tiny: bool,
                                    events["SolutionClaimed"]) - first}
 
 
+def k2_world(inputs: list[dict], miner: str, user: str):
+    """An in-process chain with the kandinsky2 template registered, the
+    miner and the user funded; `inputs` go on chain as the user's tasks
+    when `submit` is called. Engine ids are deterministic, so two worlds
+    built alike give the same taskids: phase 8 solves a first world's
+    tasks directly and mines a second's."""
+    from arbius_tpu_torch.chain import WAD, Engine, TokenLedger
+    from arbius_tpu_torch.templates import load_template_bytes
+
+    tok = TokenLedger()
+    eng = Engine(tok, start_time=0)
+    tok.mint(Engine.ADDRESS, 600_000 * WAD)
+    for a in (miner, user):
+        tok.mint(a, 1000 * WAD)
+        tok.approve(a, Engine.ADDRESS, 10**30)
+    mid_b = eng.register_model(user, user, 0,
+                               load_template_bytes("kandinsky2"))
+
+    def submit() -> list[str]:
+        return ["0x" + eng.submit_task(
+            user, 0, user, mid_b, TASK_FEE * WAD,
+            json.dumps(raw, sort_keys=True).encode()).hex()
+            for raw in inputs]
+
+    return tok, eng, "0x" + mid_b.hex(), submit
+
+
+def k2_inputs() -> list[dict]:
+    """Phase 8's six template inputs at the default bucket."""
+    return [{"prompt": f"a lighthouse on a cliff at dusk, study {i}",
+             "width": K2_SIZE, "height": K2_SIZE} for i in range(6)]
+
+
+class StageClock:
+    """CUDA events at the stage boundaries of each kandinsky2 chunk
+    (before the text tower, before the first decoder call, before MoVQ,
+    after it), and whether each chunk's pixels are finite and each
+    image not constant, from hooks on the pipeline's modules. Nothing
+    waits for the card until `read`."""
+
+    def __init__(self, torch, models):
+        from arbius_tpu_torch.models.sd15 import decode_to_images
+
+        self.torch, self.marks, self.flags = torch, [], []
+        self.decode = decode_to_images
+        models.text.register_forward_pre_hook(self._hook("text"))
+        models.decoder.register_forward_pre_hook(self._hook("decoder"))
+        models.movq.register_forward_pre_hook(self._hook("movq"))
+        models.movq.register_forward_hook(self._pixels)
+
+    def _hook(self, name):
+        def hook(_mod, _inp):
+            if name == "text":
+                self.marks.append({})
+            if name not in self.marks[-1]:   # the first decoder call
+                ev = self.torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.marks[-1][name] = ev
+        return hook
+
+    def _pixels(self, _mod, _inp, pixels):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks[-1]["end"] = ev
+        self.images = self.decode(pixels)    # the last chunk's, on the card
+        u = self.images.flatten(1)
+        self.flags.append((self.torch.isfinite(pixels).all(),
+                           (u.amax(1) > u.amin(1)).all()))
+
+    def read(self) -> list[dict]:
+        """Per chunk since the last read, the device seconds of text +
+        prior, the decoder loop and MoVQ; clears them."""
+        self.torch.cuda.synchronize()
+        out = [{stage: m[a].elapsed_time(m[b]) / 1e3
+                for stage, a, b in (("text+prior", "text", "decoder"),
+                                    ("decoder loop", "decoder", "movq"),
+                                    ("movq", "movq", "end"))}
+               for m in self.marks]
+        self.marks = []
+        return out
+
+    def images_ok(self, n: int) -> bool:
+        ok = len(self.flags) == n and all(bool(f) and bool(c)
+                                          for f, c in self.flags)
+        self.flags = []
+        return ok
+
+
+def device_trace_summary(trace: dict, top: int = 8) -> dict:
+    """A torch.profiler Chrome trace of CUDA activity: the kernels, the
+    device time under at least one kernel or copy (busy_ms), first start
+    to last end (span_ms), the idle share 1 - busy / span, and the `top`
+    kernel names by summed device time (ms, launches)."""
+    events = [e for e in trace["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    by_name: dict[str, list] = {}
+    for e in events:
+        if e["cat"] == "kernel":
+            acc = by_name.setdefault(e["name"][:90], [0.0, 0])
+            acc[0] += e["dur"] / 1e3
+            acc[1] += 1
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = spans[-1][1] - spans[0][0] if spans else 0.0
+    return {"kernels": sum(n for _, n in by_name.values()),
+            "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1.0 - busy / span if span else None,
+            "top": sorted(([name, ms, n] for name, (ms, n) in
+                           by_name.items()), key=lambda x: -x[1])[:top]}
+
+
+def phase_kandinsky2(torch, flash) -> dict:
+    """Phase 8: kandinsky2 at full width (seeded random weights, bf16),
+    the reference miner's flagship template. The main path solves six
+    template inputs at 768x768 (50 steps, DDIM, guidance 4.0) at the
+    canonical batch; a fresh pipeline re-solves them in other chunks
+    (CIDs and launches equal, one chunk traced by torch.profiler); one
+    task keeps its CID among different neighbours at 1024x1024 and
+    768x1024 (K2_BUCKET_STEPS steps); a MinerNode on LocalChain boots
+    with the committed golden (re-recorded where the build differs),
+    passes its self-test, mines the six tasks from TaskSubmitted through
+    claim, and each on-chain CID equals the main path's. Every chunk
+    launches the flash kernels as `expected_launches` derives from
+    `movq_attention_shapes`: once, on the wgmma wide route. Returns the
+    launches per route of the main path and of the node's mining."""
+    import tempfile
+
+    from arbius_tpu_torch.chain import WAD
+    from arbius_tpu_torch.cli import build_info, record_golden
+    from arbius_tpu_torch.codecs import encode_png
+    from arbius_tpu_torch.l0 import generate_commitment, taskid2seed
+    from arbius_tpu_torch.l0.cid import cid_hex, cid_of_solution_files
+    from arbius_tpu_torch.node import (
+        LocalChain,
+        MinerNode,
+        MiningConfig,
+        ModelConfig,
+        build_registry,
+        solve_cid_batch,
+    )
+    from arbius_tpu_torch.templates import hydrate_input, load_template
+    from arbius_tpu_torch.utils import card_info
+
+    card = card_info()
+    template = load_template("kandinsky2")
+    want = expected_launches(torch, flash,
+                             movq_attention_shapes(K2_SIZE, K2_SIZE))
+    check(want["tensor_core_wgmma_wide"] == 1 and sum(want.values()) == 1,
+          f"the rule sends MoVQ's call elsewhere: {want}")
+    miner, user = "0x" + "aa" * 20, "0x" + "01" * 20
+    inputs = k2_inputs()
+    tids = k2_world(inputs, miner, user)[3]()
+    items = [(hydrate_input(dict(raw), template), taskid2seed(tid))
+             for raw, tid in zip(inputs, tids)]
+
+    def config(mid, golden=None):
+        return MiningConfig(canonical_batch=CANONICAL_BATCH, models=(
+            ModelConfig(id=mid, template="kandinsky2",
+                        weights_dtype="bfloat16", golden=golden),))
+
+    def build(mid="0x" + "00" * 32, golden=None):
+        return build_registry(config(mid, golden), device="cuda").get(mid)
+
+    # -- main path: six tasks, two chunks ------------------------------------
+    t0 = time.perf_counter()
+    model = build()
+    torch.cuda.synchronize()
+    models = model.runner.pipeline.models
+    n_params = sum(p.numel() for p in models.parameters())
+    print(f"kandinsky2: built full width ({n_params} parameters, bf16 "
+          f"weights) in {time.perf_counter() - t0:.1f} s", flush=True)
+    clock = StageClock(torch, models)
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    solved = solve_cid_batch(model, items, canonical_batch=CANONICAL_BATCH)
+    wall = time.perf_counter() - t0
+    launches = dict(flash.flash_attention.launches_by_route)
+    n_chunks = -(-len(items) // CANONICAL_BATCH)
+    check(launches == {r: n * n_chunks for r, n in want.items()},
+          f"kandinsky2 launches {launches}, expected {want} x {n_chunks}")
+    check(clock.images_ok(n_chunks), "kandinsky2: non-finite or constant "
+          "images")
+    stages = clock.read()
+    cids = [cid for cid, _ in solved]
+    for tid, (cid, files) in zip(tids, solved):
+        check(len(cid) == 2 + 68 and cid.startswith("0x1220"),
+              f"kandinsky2: bad CIDv0 {cid}")
+        check(set(files) == {"out-1.png"}, f"unexpected files {set(files)}")
+        check(len(generate_commitment(ADDRESS, tid, cid)) == 32,
+              "commitment is not 32 bytes")
+    print(f"kandinsky2: solved {len(items)} tasks at {K2_SIZE}x{K2_SIZE} "
+          f"(50 steps, DDIM, guidance 4.0) in {n_chunks} chunks in "
+          f"{wall:.2f} s ({len(items) / wall * 3600:.1f} solutions/h on "
+          f"{card}); flash launches {launches}; CIDs " + " ".join(cids),
+          flush=True)
+    del model, models, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- determinism: a fresh pipeline, other chunks ---------------------------
+    fresh = build()
+    clock = StageClock(torch, fresh.runner.pipeline.models)
+    latencies, chunk_stages = [], []
+    runs = ([2, 4, 0, 1], [5, 3], [1, 0, 3, 2])
+    trace = None
+    for n, idx in enumerate(runs):
+        traced = n == len(runs) - 1
+        flash.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if traced:   # the last run under torch.profiler, CUDA activity
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                again = solve_cid_batch(fresh, [items[i] for i in idx],
+                                        canonical_batch=CANONICAL_BATCH)
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as work:
+                path = pathlib.Path(work) / "chunk.json"
+                prof.export_chrome_trace(str(path))
+                trace = device_trace_summary(json.loads(path.read_text()))
+        else:
+            again = solve_cid_batch(fresh, [items[i] for i in idx],
+                                    canonical_batch=CANONICAL_BATCH)
+            latencies.append(time.perf_counter() - t0)
+            chunk_stages += clock.read()
+        check(flash.flash_attention.launches_by_route == want,
+              f"kandinsky2 chunk {idx}: launches "
+              f"{flash.flash_attention.launches_by_route}, expected {want}")
+        for i, (cid, _) in zip(idx, again):
+            check(cid == cids[i], f"kandinsky2 task {i}: CID {cid} != "
+                  f"{cids[i]} (fresh pipeline, chunk {idx})")
+    clock.read()    # the traced chunk's stages carry the profiler's cost
+    check(clock.images_ok(len(runs)), "kandinsky2: non-finite or constant "
+          "images in the determinism runs")
+    check(trace is not None and trace["kernels"] > 0,
+          f"kandinsky2: no kernels in the traced chunk: {trace}")
+    p50 = statistics.median(latencies)
+    # the host's PNG + CID of the last chunk's images, as the solver does
+    images = clock.images.cpu().numpy()
+    t0 = time.perf_counter()
+    for img in images:
+        cid_hex(cid_of_solution_files({"out-1.png": encode_png(img)}))
+    encode_s = time.perf_counter() - t0
+    print(f"kandinsky2 determinism: fresh pipeline, chunks {list(runs)}: "
+          f"CIDs identical, 1 flash launch per chunk on "
+          f"tensor_core_wgmma_wide; per-chunk latency s "
+          f"{[round(x, 3) for x in latencies]} (host clock, to PNG and "
+          f"CID), p50 {p50:.3f} s ({CANONICAL_BATCH * 3600 / p50:.1f} "
+          f"solutions/h at full batches, {card})", flush=True)
+    stage_s = {k: statistics.median(c[k] for c in stages + chunk_stages)
+               for k in stages[0]}
+    print("kandinsky2 stages (device seconds between CUDA events, median "
+          f"of {len(stages + chunk_stages)} chunks): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_s.items())
+          + f"; PNG + CID of one chunk's {CANONICAL_BATCH} images "
+          f"{encode_s:.3f} s (host); {card}", flush=True)
+    print(f"kandinsky2 launches per chunk (chunk {runs[-1]} traced by "
+          f"torch.profiler): {trace['kernels']} kernels, of them 1 flash "
+          f"(tensor_core_wgmma_wide); device busy {trace['busy_ms']:.1f} ms "
+          f"of a {trace['span_ms']:.1f} ms span, idle share "
+          f"{trace['idle_share']:.3f}; {card}", flush=True)
+    print("kandinsky2 traced chunk, kernels by device time (name, ms, "
+          "launches): " + json.dumps(trace["top"]), flush=True)
+
+    # -- buckets: one task among different neighbours --------------------------
+    for width, height in K2_BUCKETS:
+        bucket = []
+        for i in range(6):
+            raw = {"prompt": f"a harbour at dawn, kandinsky2 study {i}",
+                   "width": width, "height": height}
+            taskid = "0x" + f"{0x6B6B * (i + 5) + width:x}".rjust(64, "4")
+            bucket.append(({**hydrate_input(raw, template),
+                            "num_inference_steps": K2_BUCKET_STEPS},
+                           taskid2seed(taskid)))
+        shape_want = expected_launches(torch, flash, movq_attention_shapes(
+            width, height))
+        t0 = time.perf_counter()
+        got = []
+        for chunk in ([0, 1, 2, 3], [4, 0, 5]):
+            flash.reset_launches()
+            out = solve_cid_batch(fresh, [bucket[i] for i in chunk],
+                                  canonical_batch=CANONICAL_BATCH)
+            check(flash.flash_attention.launches_by_route == shape_want,
+                  f"kandinsky2 {width}x{height}: launches "
+                  f"{flash.flash_attention.launches_by_route}, expected "
+                  f"{shape_want}")
+            got.append(out[chunk.index(0)][0])
+        check(got[0] == got[1], f"kandinsky2 {width}x{height}: task 0's "
+              f"CID {got[0]} among neighbours 1-3, {got[1]} among 4 and 5")
+        check(clock.images_ok(2), f"kandinsky2 {width}x{height}: "
+              "non-finite or constant images")
+        clock.read()
+        print(f"kandinsky2 buckets: {width}x{height}, {K2_BUCKET_STEPS} "
+              f"steps: task 0 keeps CID {got[0]} among different "
+              f"neighbours; launches per chunk {shape_want}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- node: golden, boot with the self-test, mine, claim ---------------------
+    committed = json.loads(
+        (pathlib.Path(__file__).resolve().parent / K2_GOLDEN_FILE)
+        .read_text())
+    check(committed["golden"]["input"] == K2_GOLDEN_INPUT
+          and committed["golden"]["seed"] == GOLDEN_SEED
+          and committed["canonical_batch"] == CANONICAL_BATCH
+          and committed["template"] == "kandinsky2",
+          f"{K2_GOLDEN_FILE} is not the vector phase 8 boots with")
+    build_now = {k: build_info("cuda").get(k) for k in BUILD_FIELDS}
+    built = {k: committed["build"].get(k) for k in BUILD_FIELDS}
+    if build_now == built:
+        golden, source = committed["golden"], K2_GOLDEN_FILE
+    else:
+        rec = record_golden(fresh, K2_GOLDEN_INPUT, GOLDEN_SEED,
+                            canonical_batch=CANONICAL_BATCH, device="cuda")
+        golden = rec["golden"]
+        source = f"re-recorded here: this build {build_now} is not {built}"
+    del fresh, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tok, eng, mid, submit = k2_world(inputs, miner, user)
+    chain = LocalChain(eng, miner)
+    chain.validator_deposit(100 * WAD)
+    cfg = config(mid, golden)
+    registry = build_registry(cfg, device="cuda")
+    node = MinerNode(chain, cfg, registry)
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    node.boot()
+    boot_s = time.perf_counter() - t0
+    check(flash.flash_attention.launches_by_route == want,
+          f"kandinsky2 self-test launches "
+          f"{flash.flash_attention.launches_by_route}, expected {want}")
+    print(f"kandinsky2 node: booted with golden {golden['cid']} ({source}); "
+          f"self-test passed in {boot_s:.2f} s", flush=True)
+    clock = StageClock(torch, registry.get(mid).runner.pipeline.models)
+    check(submit() == tids, "kandinsky2: the second world's taskids differ")
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    while node.tick():
+        pass
+    mine_s = time.perf_counter() - t0
+    node_launches = dict(flash.flash_attention.launches_by_route)
+    check(node.db.failed_jobs() == [],
+          f"kandinsky2 node: failed jobs {node.db.failed_jobs()}")
+    check(node_launches == launches, f"kandinsky2 node: launches "
+          f"{node_launches}, expected {launches}")
+    check(clock.images_ok(n_chunks), "kandinsky2 node: non-finite or "
+          "constant images")
+    for tid, want_cid in zip(tids, cids):
+        sol = eng.solutions.get(bytes.fromhex(tid[2:]))
+        check(sol is not None and sol.validator == miner,
+              f"kandinsky2 task {tid} not solved by the miner: {sol}")
+        cid = "0x" + sol.cid.hex()
+        check(cid == want_cid, f"kandinsky2 task {tid}: on-chain {cid} != "
+              f"main path {want_cid}")
+        check(chain.generate_commitment(tid, cid) in eng.commitments,
+              f"kandinsky2 task {tid}: no commitment matching {cid}")
+    bal0 = tok.balance_of(miner)
+    eng.advance_time(eng.min_claim_solution_time
+                     + cfg.claim_delay_buffer + 1)
+    while node.tick():
+        pass
+    rise = tok.balance_of(miner) - bal0
+    check(node.metrics.solutions_claimed == len(tids)
+          and rise == len(tids) * TASK_FEE * WAD * 9 // 10,
+          f"kandinsky2 node: claimed {node.metrics.solutions_claimed} of "
+          f"{len(tids)}, +{rise}")
+    infer = sum(node.metrics.stage_seconds["infer"])
+    node.close()
+    print(f"kandinsky2 node: mined {len(tids)} tasks in {n_chunks} chunks, "
+          f"{mine_s:.2f} s host time from the first tick to the last "
+          f"reveal (infer {infer:.3f} s, "
+          f"{CANONICAL_BATCH * n_chunks * 3600 / infer:.1f} sol/h at full "
+          f"batches); on-chain CIDs equal the main path's; claimed "
+          f"{len(tids)}, +{rise / WAD:g} AIUS; {card}", flush=True)
+    del node, registry, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "launches_node": node_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1051,7 +1476,7 @@ def main() -> int:
         per_batch = {r: t["launches_per_batch"]
                      for r, t in buckets[bucket].items()}
         want = expected_launches(torch, flash, shapes)
-        if bucket.startswith("VAE"):   # one call: the routes that take it
+        if bucket.startswith(("VAE", "MoVQ")):   # one call: its routes
             want = {r: n for r, n in want.items() if n or r in per_batch}
         check(per_batch == want, f"{bucket} launches per route "
               f"{per_batch}, expected {want}")
@@ -1164,9 +1589,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 8. kandinsky2 -------------------------------------------------------
+    k2 = phase_kandinsky2(torch, flash)
+
     entries = kernel_entries(flash, buckets, {
         "launches": launches, "launches_node": node_launches,
-        "launches_node_run": node_run_launches})
+        "launches_node_run": node_run_launches,
+        "launches_kandinsky2": k2["launches"],
+        "launches_kandinsky2_node": k2["launches_node"]})
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ import torch
 
 import chip_smoke
 from arbius_tpu_torch.models import common
+from arbius_tpu_torch.models.kandinsky2 import movq
 from arbius_tpu_torch.models.sd15 import vae
 from arbius_tpu_torch.ops import flash
 from arbius_tpu_torch.templates import load_template_bytes
@@ -565,6 +566,91 @@ def test_rule_sends_every_vae_bucket_to_the_wgmma_wide_route(width,
         odd[2] = stride
         assert flash.route(dtype, d, odd, [256, ptr, 256], sq,
                            skv) == "cuda_core"
+
+
+_K2_SIDES = next(row["choices"] for row in json.loads(
+    load_template_bytes("kandinsky2"))["input"] if row["variable"] == "width")
+
+
+@pytest.mark.parametrize("height", _K2_SIDES)
+@pytest.mark.parametrize("width", _K2_SIDES)
+def test_movq_call_at_every_kandinsky2_bucket_takes_the_wgmma_wide_route(
+        width, height):
+    """kandinsky2's one flash call per chunk, MoVQ's mid attention, at
+    each (width, height) its template allows (S = 9216 to 16384), in its
+    [B, 1, S, 512] views: the wgmma wide route first, once per chunk, and
+    no launch on any other route."""
+    [(b, h, sq, skv, d, count)] = chip_smoke.movq_attention_shapes(width,
+                                                                   height)
+    assert (b, h, d, count) == (4, 1, 512, 1)
+    assert sq == skv == (width // 8) * (height // 8)
+    strides = [st for s in (sq, skv, skv) for st in (s * h * d, d, h * d)]
+    assert flash.routes(torch.bfloat16, d, strides, [256] * 3, sq, skv) == [
+        "tensor_core_wgmma_wide", "tensor_core_wide", "cuda_core"]
+    launches = chip_smoke.expected_launches(
+        torch, flash, chip_smoke.movq_attention_shapes(width, height))
+    assert launches == {**dict.fromkeys(flash.SOURCES, 0),
+                        "tensor_core_wgmma_wide": 1}
+
+
+def test_movq_strided_views_take_the_wide_tensor_cores(monkeypatch):
+    """The full-width MoVQ decoder (D = 512) hands its mid attention over
+    as [B, 1, S, D] views that take the wgmma wide route, once per
+    decode; none of its other layers calls the kernels."""
+    seen = []
+
+    def spy(q, k, v):
+        seen.append(flash.route_of(q, k, v))
+        return flash.flash_attention_reference(q, k, v)
+
+    monkeypatch.setattr(common, "fused_attention", spy)
+    torch.manual_seed(0)
+    dec = movq.MOVQDecoder(movq.MOVQConfig())
+    with torch.no_grad():
+        out = dec(torch.randn(2, 2, 3, 4))
+    assert out.shape == (2, 16, 24, 3)
+    assert seen == ["tensor_core_wgmma_wide"]
+
+
+def test_kandinsky2_generate_calls_the_kernels_once_per_chunk(monkeypatch):
+    """A whole kandinsky2 solve (the tiny config) reaches ops/flash once,
+    for MoVQ: the text tower's and the prior's attentions take masks and
+    the decoder's added-KV attention is a matmul, as in the reference."""
+    from arbius_tpu_torch.models.kandinsky2 import (
+        Kandinsky2Config,
+        Kandinsky2Pipeline,
+    )
+    from arbius_tpu_torch.node.factory import tiny_byte_tokenizer
+
+    calls = []
+
+    def spy(q, k, v):
+        calls.append(tuple(q.shape))
+        return flash.flash_attention_reference(q, k, v)
+
+    monkeypatch.setattr(common, "fused_attention", spy)
+    cfg = Kandinsky2Config.tiny()
+    pipe = Kandinsky2Pipeline(cfg, tokenizer=tiny_byte_tokenizer(cfg.text),
+                              device="cpu")
+    pipe.load_params(pipe.init_params(0))
+    pipe.generate(["a", "b"], None, [1, 2], width=64, height=64,
+                  num_inference_steps=2)
+    assert calls == [(2, 1, 64, 8)]
+
+
+def test_device_trace_summary_counts_kernels_busy_and_idle_time():
+    """chip_smoke's reading of a torch.profiler trace: kernels counted,
+    busy time the union of device intervals (kernels and copies), the
+    span first start to last end, and kernel names by summed time."""
+    ev = [("kernel", "gemm", 0, 10), ("kernel", "norm", 5, 10),
+          ("gpu_memcpy", "copy", 30, 5), ("kernel", "gemm", 40, 5),
+          ("cuda_runtime", "cudaLaunchKernel", 0, 50)]
+    got = chip_smoke.device_trace_summary({"traceEvents": [
+        {"ph": "X", "cat": c, "name": n, "ts": t, "dur": d}
+        for c, n, t, d in ev]})
+    assert got == {"kernels": 3, "busy_ms": 0.025, "span_ms": 0.045,
+                   "idle_share": 1 - 25 / 45,
+                   "top": [["gemm", 0.015, 2], ["norm", 0.01, 1]]}
 
 
 def test_cuda_core_bound_is_one_bf16_rounding():

@@ -35,6 +35,8 @@ EMPTY_DIR = "QmUNLLsPACCz1vLxQVkXqqLX5R1X345qqfHbsf67hvA3Nn"
     ("arbius_tpu_torch/csrc/codecs.cc", "native/codecs.cc"),
     ("arbius_tpu_torch/templates/data/anythingv3.json",
      "arbius_tpu/templates/data/anythingv3.json"),
+    ("arbius_tpu_torch/templates/data/kandinsky2.json",
+     "arbius_tpu/templates/data/kandinsky2.json"),
     ("arbius_tpu_torch/schedulers/diffusion.py",
      "arbius_tpu/schedulers/diffusion.py"),
 ])
@@ -64,8 +66,9 @@ CHANGED_TWINS = {
               "SIGTERM and an exit summary",
     "node/config.py": "own copies of RULE_NAMES and validate_axes; no "
                       "compile cache by default",
-    "node/solver.py": "the SD-1.5 half only, on CUDA streams and events",
-    "node/factory.py": "anythingv3 only, on a torch device",
+    "node/solver.py": "the SD-1.5 and Kandinsky-2 runners only, on CUDA "
+                      "streams and events",
+    "node/factory.py": "anythingv3 and kandinsky2 only, on a torch device",
     "node/sched.py": "module docstring only: no project history",
 }
 

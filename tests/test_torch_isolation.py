@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "arbius_tpu")
 SOURCES = sorted((REPO / "arbius_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "flash_mutants.py",
     REPO / "tools" / "flash_ablate.py", REPO / "tools" / "flash_same_bits.py",
-    REPO / "tools" / "flash_times.py", REPO / "tools" / "node_run_trace.py"]
+    REPO / "tools" / "flash_times.py", REPO / "tools" / "node_run_trace.py",
+    REPO / "tools" / "kandinsky2_flops.py"]
 
 
 def _imported(path: pathlib.Path) -> set[str]:
@@ -51,16 +52,31 @@ def test_every_module_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 64
+    assert int(out.stdout.strip()) >= 69
 
 
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the default device is usable")
+    from arbius_tpu_torch.models.kandinsky2 import (
+        Kandinsky2Config,
+        Kandinsky2Pipeline,
+    )
     from arbius_tpu_torch.models.sd15 import SD15Config, SD15Pipeline
-    from arbius_tpu_torch.node import build_anythingv3
+    from arbius_tpu_torch.node import (
+        MiningConfig,
+        ModelConfig,
+        build_anythingv3,
+        build_registry,
+    )
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_anythingv3(tiny=True)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        SD15Pipeline(SD15Config.tiny())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_registry(MiningConfig(compile_cache_dir=None, models=(
+            ModelConfig(id="0x" + "00" * 32, template="kandinsky2",
+                        tiny=True),)))
+    for pipeline, config in ((SD15Pipeline, SD15Config),
+                             (Kandinsky2Pipeline, Kandinsky2Config)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pipeline(config.tiny())

@@ -12,9 +12,10 @@ carried across by the bridge) mines tasks through the port's node at
 128x128, 2 steps, canonical batch 2; each on-chain CID equals the port's
 `solve_cid_batch` and the reference's PNG-and-CID path on the port's
 images, whatever the arrival order. Then the boot self-test against a
-golden from the port's record-golden, the settings the port refuses at
-boot, and `demo-mine` in a process where JAX and arbius_tpu cannot be
-imported.
+golden from the port's record-golden, the tiny kandinsky2 model booting
+with its own recorded golden and mining a task, the settings the port
+refuses at boot, and `demo-mine` in a process where JAX and arbius_tpu
+cannot be imported.
 """
 from __future__ import annotations
 
@@ -760,9 +761,84 @@ def test_single_device_mesh_boots():
     assert node.solve_layout == "single"
 
 
+def test_kandinsky2_boots_with_recorded_golden_and_mines():
+    """The tiny kandinsky2 model on the CPU (the port's seeded init, bf16
+    weights, canonical batch 1): record-golden's function records the
+    self-test vector at the template's 768x768 (50 steps, DDIM, guidance
+    4.0 by the runner's defaults) for the input and seed of the task the
+    node will mine (its taskid taken from a twin world); a node boots
+    with it, mines the task on LocalChain through reveal and claim, and
+    the on-chain CID is the golden's."""
+    from arbius_tpu_torch.cli import record_golden
+
+    P = _pkg("arbius_tpu_torch")
+    WAD = P.WAD
+    raw = {"prompt": "arbius test cat", "width": 768, "height": 768}
+
+    def world():
+        tok = P.TokenLedger()
+        eng = P.Engine(tok, start_time=10_000)
+        tok.mint(P.Engine.ADDRESS, 600_000 * WAD)
+        for a in (MINER, USER):
+            tok.mint(a, 1_000 * WAD)
+            tok.approve(a, P.Engine.ADDRESS, 10**30)
+        mid_b = eng.register_model(USER, MODEL_ADDR, 0, b'{"meta":{}}')
+        return tok, eng, mid_b
+
+    def submit(eng, mid_b):
+        return "0x" + eng.submit_task(USER, 0, USER, mid_b, WAD,
+                                      json.dumps(raw).encode()).hex()
+
+    tid = submit(*world()[1:])
+    tok, eng, mid_b = world()
+    mid = "0x" + mid_b.hex()
+
+    def config(golden=None):
+        return _config(P, canonical_batch=1, models=(P.node.ModelConfig(
+            id=mid, template="kandinsky2", tiny=True,
+            weights_dtype="bfloat16", golden=golden),))
+
+    model = P.node.build_registry(config(), device="cpu").get(mid)
+    rec = record_golden(model, raw, P.taskid2seed(tid), canonical_batch=1,
+                        device="cpu")
+    chain = P.node.LocalChain(eng, MINER)
+    chain.validator_deposit(100 * WAD)
+    cfg = config(rec["golden"])
+    node = P.node.MinerNode(chain, cfg, P.node.build_registry(
+        cfg, device="cpu"))
+    node.boot()
+    assert submit(eng, mid_b) == tid
+    while node.tick():
+        pass
+    bal0 = tok.balance_of(MINER)
+    eng.advance_time(2000 + 121)
+    while node.tick():
+        pass
+    sol = eng.solutions[bytes.fromhex(tid[2:])]
+    assert sol.claimed and "0x" + sol.cid.hex() == rec["golden"]["cid"]
+    assert tok.balance_of(MINER) - bal0 == WAD * 9 // 10
+
+
+@pytest.mark.parametrize("overrides,item", [
+    ({"model": {"checkpoint": "/ckpts/kandinsky2"}}, 3),
+    ({"model": {"tokenizer": "clip_bpe", "vocab_path": "vocab.json",
+                "merges_path": "merges.txt"}}, 3),
+    ({"precision": {"default": "int8"}}, 6),
+    ({"precision": {"templates": {"kandinsky2": "fp8"}}}, 6),
+], ids=lambda v: json.dumps(v) if isinstance(v, dict) else str(v))
+def test_registry_refuses_kandinsky2_unported_settings(overrides, item):
+    P = _pkg("arbius_tpu_torch")
+    model = {"id": "0x" + "00" * 32, "template": "kandinsky2", "tiny": True,
+             **overrides.get("model", {})}
+    cfg = P.node.load_config({"compile_cache_dir": None, "models": [model],
+                              **{k: v for k, v in overrides.items()
+                                 if k != "model"}})
+    with pytest.raises(P.node.ConfigError, match=f"item {item}\\)"):
+        P.node.build_registry(cfg, device="cpu")
+
+
 @pytest.mark.parametrize("template,item", [
-    ("kandinsky2", 7), ("zeroscopev2xl", 9), ("damo", 9),
-    ("robust_video_matting", 10)])
+    ("zeroscopev2xl", 9), ("damo", 9), ("robust_video_matting", 10)])
 def test_registry_refuses_unported_templates(template, item):
     P = _pkg("arbius_tpu_torch")
     cfg = _config(P, models=(P.node.ModelConfig(
