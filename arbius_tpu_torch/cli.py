@@ -98,7 +98,8 @@ def cmd_record_golden(args) -> int:
 
     raw = json.loads(args.input) if args.input else {
         "prompt": "arbius test cat",
-        # the kandinsky2 template has no negative prompt
+        # kandinsky2's and damo's templates have no negative prompt,
+        # zeroscopev2xl's hydrates its default
         **({"negative_prompt": ""} if args.template == "anythingv3"
            else {})}
     mid = "0x" + "00" * 32
@@ -489,7 +490,8 @@ def main(argv=None) -> int:
         "record-golden",
         help="compute a model's boot self-test golden CID on this build")
     sp.add_argument("--template", default="anythingv3",
-                    choices=["anythingv3", "kandinsky2"])
+                    choices=["anythingv3", "kandinsky2", "zeroscopev2xl",
+                             "damo"])
     sp.add_argument("--input", help='hydratable input JSON (default: '
                                     '{"prompt": "arbius test cat", ...})')
     sp.add_argument("--seed", type=int, default=1337)  # index.ts:988

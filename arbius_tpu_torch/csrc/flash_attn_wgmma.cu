@@ -1,8 +1,9 @@
 // Exact softmax attention on Hopper's warpgroup tensor cores (wgmma), fed
-// by TMA, for sm_90a: the bf16 route for the UNet's self-attentions, at
-// head dims 40, 80 and 160 and any query and key lengths (4096^2 and
+// by TMA, for sm_90a: the bf16 route for the UNets' self-attentions, at
+// head dims 40, 64, 80 and 160 and any query and key lengths (4096^2 and
 // 1024^2 at 512x512, 1600^2 at 640x640, 576^2 and 144^2 at D = 160 at
-// 768x768, ...).
+// 768x768, ...; the video UNet's 1024^2 and 256^2 at D = 64 at 256x256,
+// 9216^2 to 144^2 at 1024x576).
 //
 // Replaces the Pallas TPU kernel `_kernel` launched by `flash_attention`
 // in arbius_tpu/ops/flash.py (:34-60): out = softmax(q k^T / sqrt(D)) v
@@ -17,7 +18,9 @@
 // score carries 4 x 40 FLOP of the two products, so the exponentials
 // (level 0, 8 x 8 x 4096^2 of them: 0.278 ms at the SFU's 3.87e12/s) take
 // longer than the products (0.174 ms at 989 TFLOP/s): the SFU sets the
-// floor. At D = 80 the two are about level (0.017 ms exp2, 0.022 ms
+// floor. At D = 64 a score carries 256 FLOP against one exp2, which the
+// tensor cores and the SFU each do in the same time: the two limits are
+// level. At D = 80 the two are about level (0.017 ms exp2, 0.022 ms
 // products at 1024^2): operations bound it. At D = 160 a score carries
 // 640 FLOP of products against one exp2, and the calls are small: bytes
 // bound them (144^2: 3.5 us to read q, k, v and write o, 0.9 us of
@@ -26,7 +29,7 @@
 // Design (FlashAttention-3's shape):
 //   - one block per (b*h, query tile): a producer warpgroup and consumer
 //     warpgroups of 64 query rows each, three at D = 40 (192-row tiles)
-//     and two at D = 80 and 160 (128-row tiles). At D = 40 little of a
+//     and two at D = 64, 80 and 160 (128-row tiles). At D = 40 little of a
 //     consumer's time is throughput: its softmax is a chain of dependent
 //     steps run by one warp per SM sub-partition, so a third consumer
 //     keeps the sub-partitions busy (160 registers each); at D = 80 the
@@ -38,7 +41,7 @@
 //     invariant to batch position, and do not depend on the number of
 //     consumers. The last tile's keys >= S_kv are masked: TMA reads the
 //     rows past S_kv as zeros, which would score 0, not -inf.
-//   - the key tile is 128 keys at D = 40 and 80, 64 at D = 160: two
+//   - the key tile is 128 keys at D = 40, 64 and 80, 64 at D = 160: two
 //     stages of 128-key K and V tiles at D = 160 would take 192 KB beside
 //     Q's 48 KB, more than a block's 227 KB of shared memory.
 //   - the producer (one thread; setmaxnreg gives its warpgroup's registers
@@ -52,7 +55,8 @@
 //     TMA writes zeros there (never the next head's data). That pads the
 //     contraction of Q K^T to 48 (D = 40) or 80 (D = 80) with zeros; at
 //     D = 160 three boxes take columns 0-191 and the contraction is 10
-//     k16 steps with no pad. The shared layout is the canonical 128-byte
+//     k16 steps with no pad; D = 64 is one box and 4 k16 steps, no pad
+//     either. The shared layout is the canonical 128-byte
 //     swizzled one that wgmma reads without bank conflicts.
 //   - S = Q K^T: wgmma m64n{kBK}k16, A (Q) and B (K) K-major from shared
 //     memory. O += P V: wgmma m64nDk16, P as the A operand from registers
@@ -95,6 +99,14 @@ struct Layout {
   static constexpr int kKV = kBlocks * kBK * kRow;  // bytes of a K or V tile
   // Q, the K and V rings, and slack to align the base to 1024 bytes
   static constexpr int kSmem = kQ + 2 * kStages * kKV + 1024;
+  static_assert(kSmem <= 227 * 1024,
+                "Q and the K/V ring exceed a block's shared memory");
+};
+
+// a compile-time flag passed to the consumer loop's `step`
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
 };
 
 struct Barriers {
@@ -190,20 +202,24 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
     float l[2] = {0.f, 0.f};
     float alpha[2] = {1.f, 1.f};
 
-    mbar_wait(smem_addr(&bars.q), 0);
-    for (int t = 0; t <= ntiles; ++t) {
-      const bool has_s = t < ntiles;  // S_t = Q K_t^T
-      const bool has_pv = t > 0;      // O += P_{t-1} V_{t-1}
+    // one turn of the loop: S_t = Q K_t^T where has_s (t < ntiles), and
+    // O += P_{t-1} V_{t-1} where has_pv (t > 0). Both flags are constants
+    // of each instantiation, so no wgmma, wait or accumulator write sits
+    // in a branch (where ptxas would serialise the products, note C7520).
+    auto step = [&](const int t, auto s_flag, auto pv_flag) {
+      constexpr bool has_s = decltype(s_flag)::value;
+      constexpr bool has_pv = decltype(pv_flag)::value;
       const int st = t % kStages;
       const int pst = (t + kStages - 1) % kStages;
-      if (has_s) mbar_wait(smem_addr(&bars.full_k[st]), (t / kStages) & 1);
-      if (has_pv)
+      if constexpr (has_s)
+        mbar_wait(smem_addr(&bars.full_k[st]), (t / kStages) & 1);
+      if constexpr (has_pv)
         mbar_wait(smem_addr(&bars.full_v[pst]), ((t - 1) / kStages) & 1);
 
       // this consumer's turn on the tensor cores: in order 0, 1, ...
       named_sync(kBarTurn + c, 256);
       wgmma_fence();
-      if (has_s) {
+      if constexpr (has_s) {
 #pragma unroll
         for (int ks = 0; ks < L::kSteps; ++ks) {
           const uint32_t blk = ks / 4, off = (ks % 4) * 32;
@@ -216,7 +232,7 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
         }
         wgmma_commit();
       }
-      if (has_pv) {
+      if constexpr (has_pv) {
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
           wgmma_rs<D>(o, pa[kk],
@@ -226,11 +242,11 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
       }
       // the next consumer's turn (the last consumer's last turn hands over
       // to no one)
-      if (c + 1 < kWG || has_s)
+      if (has_s || c + 1 < kWG)
         named_arrive(kBarTurn + (c + 1) % kWG, 256);
 
-      if (has_s) {
-        if (has_pv) {
+      if constexpr (has_s) {
+        if constexpr (has_pv) {
           wgmma_wait<1>();  // S_t has landed; P V may still run
         } else {
           wgmma_wait<0>();
@@ -274,7 +290,7 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
           l[r] = l[r] * alpha[r] + rs;
         }
       }
-      if (has_pv) {
+      if constexpr (has_pv) {
         wgmma_wait<0>();  // P_{t-1} V_{t-1} has landed
 #pragma unroll
         for (int i = 0; i < kO; ++i) fence_reg(o[i]);
@@ -284,7 +300,7 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
           for (int e = 0; e < 4; ++e) fence_reg(pa[kk][e]);
         mbar_arrive(smem_addr(&bars.empty_v[pst]));
       }
-      if (has_s) {
+      if constexpr (has_s) {
 #pragma unroll
         for (int j = 0; j < kO / 4; ++j) {
           o[4 * j] *= alpha[0];
@@ -301,7 +317,12 @@ __global__ void __launch_bounds__(Layout<D>::kThreads, 1)
           pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
         }
       }
-    }
+    };
+
+    mbar_wait(smem_addr(&bars.q), 0);
+    step(0, Flag<true>{}, Flag<false>{});
+    for (int t = 1; t < ntiles; ++t) step(t, Flag<true>{}, Flag<true>{});
+    step(ntiles, Flag<false>{}, Flag<true>{});
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -358,7 +379,7 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 extern "C" {
 
 // The argument list of arbius_flash_attn_fwd (flash_attn.cu). Takes bf16
-// (dtype 1) only, D = 40, 80 or 160, any Sq and Skv >= 1, every B/H/S
+// (dtype 1) only, D = 40, 64, 80 or 160, any Sq and Skv >= 1, every B/H/S
 // stride a multiple of 8 elements and 16-byte aligned q/k/v/o
 // (ops/flash.py's route rule); o: contiguous [B, H, Sq, D]. Launches on
 // `stream`, allocates nothing, and returns 0 on success, else a CUDA error
@@ -372,8 +393,8 @@ int arbius_flash_attn_wgmma_fwd(
     float scale, void* stream) {
   const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh,
                                 k_ss, v_sb, v_sh, v_ss};
-  bool ok = dtype == 1 && (d == 40 || d == 80 || d == 160) && sq > 0 &&
-            skv > 0 &&
+  bool ok = dtype == 1 && (d == 40 || d == 64 || d == 80 || d == 160) &&
+            sq > 0 && skv > 0 &&
             ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 ==
                 0;
   for (long long s : strides) ok = ok && s % 8 == 0;
@@ -382,6 +403,7 @@ int arbius_flash_attn_wgmma_fwd(
            q_sh, q_ss, k_sb, k_sh, k_ss,  v_sb, v_sh, v_ss, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 40) return launch<40>(p, batch, st);
+  if (d == 64) return launch<64>(p, batch, st);
   if (d == 80) return launch<80>(p, batch, st);
   return launch<160>(p, batch, st);
 }

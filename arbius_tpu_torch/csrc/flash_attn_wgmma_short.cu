@@ -1,8 +1,8 @@
 // Exact softmax attention over short key sequences (S_kv <= 128) on
 // Hopper's warpgroup tensor cores (wgmma), fed and drained by TMA, for
 // sm_90a: the bf16 route for the UNet's 77-key cross-attentions at every
-// bucket and its self-attentions of 128 tokens or fewer, head dims 40, 80
-// and 160.
+// bucket and its self-attentions of 128 tokens or fewer, head dims 40, 64,
+// 80 and 160 (64: the video UNet's).
 //
 // Replaces the Pallas TPU kernel `_kernel` launched by `flash_attention`
 // in arbius_tpu/ops/flash.py (:34-60): out = softmax(q k^T / sqrt(D)) v
@@ -23,7 +23,7 @@
 // Design:
 //   - a block per (b*h, run of 64-row query tiles): a producer warpgroup
 //     (one thread; setmaxnreg gives its registers to the consumers) and
-//     consumer warpgroups (three at D = 40 and 80, two at D = 160) that
+//     consumer warpgroups (three at D = 40, 64 and 80, two at D = 160) that
 //     take the run's tiles in turn. The producer loads K and V of the
 //     block's (b, h) once by TMA, and they stay resident; the query tiles
 //     stream through TMA stages, each consumer's own (1 to 3 each, as
@@ -59,14 +59,14 @@ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 template <int D, int NK>
 struct Layout {
-  // consumer warpgroups: three at D = 40 and 80, where a third keeps
+  // consumer warpgroups: three at D = 40, 64 and 80, where a third keeps
   // more tiles in flight (tools/flash_ablate.py times two), two at
   // D = 160, whose accumulators need the registers; registers per thread
   // after setmaxnreg (65536 in all on the SM)
   static constexpr int kConsumers = D == 160 ? 2 : 3;
   static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer
   static constexpr int kProducerRegs = D == 40 ? 24 : 40;
-  static constexpr int kConsumerRegs = D == 40 ? 160 : D == 80 ? 152 : 232;
+  static constexpr int kConsumerRegs = D == 40 ? 160 : D == 160 ? 232 : 152;
   static_assert(regs_balance(kThreads, kConsumers, kProducerRegs,
                              kConsumerRegs),
                 "setmaxnreg cannot give the consumers these registers");
@@ -358,7 +358,7 @@ int launch_d(const Params& p, int batch, cudaStream_t stream) {
 extern "C" {
 
 // The argument list of arbius_flash_attn_fwd (flash_attn.cu). Takes bf16
-// (dtype 1) only, D = 40, 80 or 160, 1 <= Skv <= 128, every B/H/S stride a
+// (dtype 1) only, D = 40, 64, 80 or 160, 1 <= Skv <= 128, every B/H/S stride a
 // multiple of 8 elements and 16-byte aligned q/k/v/o (ops/flash.py's route
 // rule); o: contiguous [B, H, Sq, D]. Launches on `stream`, allocates
 // nothing, and returns 0 on success, else a CUDA error code, or 1000 plus
@@ -371,8 +371,8 @@ int arbius_flash_attn_wgmma_short_fwd(
     float scale, void* stream) {
   const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh,
                                 k_ss, v_sb, v_sh, v_ss};
-  bool ok = dtype == 1 && (d == 40 || d == 80 || d == 160) && sq > 0 &&
-            skv > 0 && skv <= 128 &&
+  bool ok = dtype == 1 && (d == 40 || d == 64 || d == 80 || d == 160) &&
+            sq > 0 && skv > 0 && skv <= 128 &&
             ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 ==
                 0;
   for (long long s : strides) ok = ok && s % 8 == 0;
@@ -381,6 +381,7 @@ int arbius_flash_attn_wgmma_short_fwd(
            q_sh, q_ss, k_sb, k_sh, k_ss,  v_sb, v_sh, v_ss, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 40) return launch_d<40>(p, batch, st);
+  if (d == 64) return launch_d<64>(p, batch, st);
   if (d == 80) return launch_d<80>(p, batch, st);
   return launch_d<160>(p, batch, st);
 }

@@ -18,6 +18,8 @@ Twin of arbius_tpu/models/common.py. Differences of layout, not of math:
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import numpy as np
@@ -76,6 +78,46 @@ class GroupNorm32(nn.Module):
         return y.reshape(x.shape).to(x.dtype)
 
 
+class LayerNorm32(nn.Module):
+    """LayerNorm over the last axis, computed in float32 whatever the
+    input dtype, returning float32.
+
+    The arithmetic is flax's (`_compute_stats` with its default
+    use_fast_variance, then `_normalize`), not torch's two-pass form:
+    mean = E[x], var = max(0, E[x^2] - mean^2), y = (x - mean) *
+    (rsqrt(var + eps) * weight) + bias. The two differ where a row's
+    mean is large against its spread. The parameters keep nn.LayerNorm's
+    names, `weight` and `bias`."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+_SAMPLES_PER_CONV = contextvars.ContextVar("samples_per_conv", default=1)
+
+
+@contextlib.contextmanager
+def samples_per_conv(n: int):
+    """Within the block, each Conv2d call takes `n` consecutive maps of
+    its batch (the video UNet3D: one task's frames of one guidance half)
+    instead of one."""
+    token = _SAMPLES_PER_CONV.set(n)
+    try:
+        yield
+    finally:
+        _SAMPLES_PER_CONV.reset(token)
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d run one sample per call, so that a task's bits do not
     depend on its neighbours in the batch.
@@ -85,11 +127,19 @@ class Conv2d(nn.Conv2d):
     position in the batch (on an H100, the 3x3 convs to 1280 channels
     over 16x16 and 32x32 maps at batch 8). With one sample per call every
     sample is the same problem, whatever shares its batch. The solver's
-    canonical batch still fixes every other kernel's shape."""
+    canonical batch still fixes every other kernel's shape.
+
+    Under `samples_per_conv(n)` a call takes n consecutive maps. The video
+    UNet3D runs a task's T frames of one guidance half per call: each
+    call is then the same problem, and a frame's position in it is its
+    frame index, whatever tasks share the batch (on the H100 it takes a
+    damo chunk's convolutions from 64x to 8 calls each, 47 s to 21 s a
+    chunk)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.cat([super(Conv2d, self).forward(x[i:i + 1])
-                          for i in range(x.shape[0])])
+        n = _SAMPLES_PER_CONV.get()
+        return torch.cat([super(Conv2d, self).forward(x[i:i + n])
+                          for i in range(0, x.shape[0], n)])
 
 
 def conv3x3(cin: int, cout: int, dtype, device, stride: int = 1) -> Conv2d:
@@ -227,8 +277,7 @@ class TransformerBlock(nn.Module):
                  context_dim: int, dtype, device=None):
         super().__init__()
         for i in range(3):
-            setattr(self, f"LayerNorm_{i}",
-                    nn.LayerNorm(dim, eps=1e-5, device=device))
+            setattr(self, f"LayerNorm_{i}", LayerNorm32(dim, device=device))
         self.attn1 = Attention(dim, num_heads, head_dim, dtype, device=device)
         self.attn2 = Attention(dim, num_heads, head_dim, dtype,
                                context_dim=context_dim, device=device)
@@ -236,7 +285,7 @@ class TransformerBlock(nn.Module):
         self.ff_out = nn.Linear(dim * 4, dim, dtype=dtype, device=device)
 
     def _ln(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        return getattr(self, f"LayerNorm_{i}")(x.float()).to(x.dtype)
+        return getattr(self, f"LayerNorm_{i}")(x).to(x.dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None):
         x = x + self.attn1(self._ln(0, x))

@@ -31,6 +31,7 @@ from torch import nn
 
 from arbius_tpu_torch.models.common import (
     GroupNorm32,
+    LayerNorm32,
     ResnetBlock,
     TimestepEmbedding,
     conv3x3,
@@ -198,8 +199,7 @@ class DecoderUNet(nn.Module):
         kw = dict(dtype=dt, device=device)
         self.embed_to_context = nn.Linear(
             cfg.clip_dim, cfg.context_tokens * u.context_dim, **kw)
-        self.context_norm = nn.LayerNorm(u.context_dim, eps=1e-5,
-                                         device=device)
+        self.context_norm = LayerNorm32(u.context_dim, device=device)
         self.add_linear_1 = nn.Linear(cfg.clip_dim, tdim, **kw)
         self.add_linear_2 = nn.Linear(tdim, tdim, **kw)
         self.unet = KandinskyUNet(u, device)
@@ -210,7 +210,7 @@ class DecoderUNet(nn.Module):
         emb = image_embed.to(u.tdtype)
         ctx = self.embed_to_context(emb).view(
             emb.shape[0], cfg.context_tokens, u.context_dim)
-        ctx = self.context_norm(ctx.float()).to(u.tdtype)
+        ctx = self.context_norm(ctx).to(u.tdtype)
         add = self.add_linear_2(F.silu(self.add_linear_1(emb)))
         out = self.unet(x.to(u.tdtype).permute(0, 3, 1, 2), t, ctx,
                         extra_temb=add)

@@ -26,7 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from arbius_tpu_torch import random as jrandom
-from arbius_tpu_torch.models.common import Attention, sinusoidal_embedding
+from arbius_tpu_torch.models.common import (
+    Attention,
+    LayerNorm32,
+    sinusoidal_embedding,
+)
 
 NEG_INF = -1e9
 PRIOR_NOISE_FOLD = 0x9A10   # fold_in constant of the prior's initial noise
@@ -50,9 +54,9 @@ class PriorConfig:
         return cls(clip_dim=16, width=32, layers=2, heads=2, text_len=8)
 
 
-def _ln(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+def _ln(norm: LayerNorm32, x: torch.Tensor) -> torch.Tensor:
     """A float32 LayerNorm, back in x's dtype."""
-    return norm(x.float()).to(x.dtype)
+    return norm(x).to(x.dtype)
 
 
 class PriorBlock(nn.Module):
@@ -61,10 +65,10 @@ class PriorBlock(nn.Module):
     def __init__(self, width: int, heads: int, dtype, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.norm1 = nn.LayerNorm(width, eps=1e-5, device=device)
+        self.norm1 = LayerNorm32(width, device=device)
         self.attn1 = Attention(width, heads, width // heads, dtype,
                                qkv_bias=True, device=device)
-        self.norm3 = nn.LayerNorm(width, eps=1e-5, device=device)
+        self.norm3 = LayerNorm32(width, device=device)
         self.ff_in = nn.Linear(width, width * 4, **kw)
         self.ff_out = nn.Linear(width * 4, width, **kw)
 
@@ -93,7 +97,7 @@ class PriorTransformer(nn.Module):
             torch.zeros(1, cfg.text_len + 4, w, device=device))
         for i in range(cfg.layers):
             setattr(self, f"block_{i}", PriorBlock(w, cfg.heads, dt, device))
-        self.norm_out = nn.LayerNorm(w, eps=1e-5, device=device)
+        self.norm_out = LayerNorm32(w, device=device)
         self.out_proj = nn.Linear(w, cfg.clip_dim, device=device)
 
     def forward(self, noisy_embed, t, text_tokens, text_pooled,
@@ -121,7 +125,7 @@ class PriorTransformer(nn.Module):
             mask = (1.0 - full)[:, None, None, :] * NEG_INF   # [B,1,1,S]
         for i in range(cfg.layers):
             seq = getattr(self, f"block_{i}")(seq, mask)
-        return self.out_proj(self.norm_out(seq[:, -1].float()))
+        return self.out_proj(self.norm_out(seq[:, -1]))
 
 
 def prior_stats_init(clip_dim: int, device=None) -> torch.Tensor:

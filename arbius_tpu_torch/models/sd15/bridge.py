@@ -1,15 +1,18 @@
 """Weights for the port's modules: from a JAX parameter tree, or a seeded
-init of the same distributions. Shared by the SD-1.5 and Kandinsky-2
-families.
+init of the same distributions. Shared by the SD-1.5, Kandinsky-2 and
+text-to-video families.
 
 `params_from_jax` takes the reference's `init_params` tree as nested dicts
 of numpy arrays (the caller converts; this module never imports JAX) and
 returns a `state_dict` for the family's module bundle (`SD15Models`,
-`Kandinsky2Models`). The port's modules carry the flax names, so a key is
-the flax path joined with '.', and only the leaves change:
+`Kandinsky2Models`, `Text2VideoModels`). The port's modules carry the
+flax names, so a key is the flax path joined with '.', and only the
+leaves change:
 
   - Dense kernel [in, out]          -> Linear weight [out, in]
   - Conv kernel [kH, kW, I, O]      -> Conv2d weight [O, I, kH, kW]
+  - frame-axis Conv kernel [3, I, O] (`FRAME_CONVS`) -> Conv3d weight
+    [O, I, 3, 1, 1]
   - DenseGeneral q/k/v [W, H, D]    -> Linear weight [H*D, W]; bias [H, D] -> [H*D]
   - DenseGeneral out [H, D, W]      -> Linear weight [W, H*D]
   - GroupNorm/LayerNorm `scale`, Embed `embedding` -> `weight`
@@ -37,6 +40,8 @@ def _convert(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, np.ndarray]:
             leaf = leaf.T
         elif leaf.ndim == 4:
             leaf = leaf.transpose(3, 2, 0, 1)
+        elif leaf.ndim == 3 and path[-2] in FRAME_CONVS:
+            leaf = leaf.transpose(2, 1, 0)[..., None, None]
         elif leaf.ndim == 3 and path[-2] == "out":
             leaf = leaf.reshape(-1, leaf.shape[-1]).T
         elif leaf.ndim == 3:
@@ -49,6 +54,10 @@ def _convert(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, np.ndarray]:
     elif name in ("scale", "embedding"):
         name = "weight"
     return ".".join(path[:-1] + (name,)), np.ascontiguousarray(leaf)
+
+
+# the video UNet's frame-axis convs (TemporalConvLayer's four stages)
+FRAME_CONVS = ("conv1", "conv2", "conv3", "conv4")
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
@@ -76,7 +85,7 @@ EMBED_STD = (("prior.pos_embed", 0.02), ("prior.prd_embed", 0.02),
 
 
 def _fan_in(shape: torch.Size) -> int:
-    # Linear [out, in]; Conv2d [O, I, kH, kW]
+    # Linear [out, in]; Conv2d [O, I, kH, kW]; Conv3d [O, I, 3, 1, 1]
     return math.prod(shape[1:])
 
 

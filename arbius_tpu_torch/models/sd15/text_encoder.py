@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from arbius_tpu_torch.models.common import LayerNorm32
+
 
 @dataclass(frozen=True)
 class TextEncoderConfig:
@@ -74,9 +76,9 @@ class _EncoderLayer(nn.Module):
     def __init__(self, cfg: TextEncoderConfig, device=None):
         super().__init__()
         dt = cfg.tdtype
-        self.LayerNorm_0 = nn.LayerNorm(cfg.width, eps=1e-5, device=device)
+        self.LayerNorm_0 = LayerNorm32(cfg.width, device=device)
         self.attn = _SelfAttention(cfg.width, cfg.heads, dt, device)
-        self.LayerNorm_1 = nn.LayerNorm(cfg.width, eps=1e-5, device=device)
+        self.LayerNorm_1 = LayerNorm32(cfg.width, device=device)
         self.Dense_0 = nn.Linear(cfg.width, cfg.width * 4, dtype=dt,
                                  device=device)
         self.Dense_1 = nn.Linear(cfg.width * 4, cfg.width, dtype=dt,
@@ -84,9 +86,9 @@ class _EncoderLayer(nn.Module):
         self.act = quick_gelu if cfg.act == "quick_gelu" else F.gelu
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        h = self.LayerNorm_0(x.float()).to(x.dtype)
+        h = self.LayerNorm_0(x).to(x.dtype)
         x = x + self.attn(h, mask)
-        h = self.LayerNorm_1(x.float()).to(x.dtype)
+        h = self.LayerNorm_1(x).to(x.dtype)
         return x + self.Dense_1(self.act(self.Dense_0(h)))
 
 
@@ -102,7 +104,7 @@ class TextEncoder(nn.Module):
             torch.zeros(cfg.max_length, cfg.width, device=device))
         for i in range(cfg.layers):
             setattr(self, f"layer_{i}", _EncoderLayer(cfg, device))
-        self.final_norm = nn.LayerNorm(cfg.width, eps=1e-5, device=device)
+        self.final_norm = LayerNorm32(cfg.width, device=device)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -112,4 +114,4 @@ class TextEncoder(nn.Module):
                             device=ids.device).tril()[None, None]
         for i in range(cfg.layers):
             x = getattr(self, f"layer_{i}")(x, causal)
-        return self.final_norm(x.float())
+        return self.final_norm(x)

@@ -1,6 +1,7 @@
 """Registry factory — MiningConfig → live ModelRegistry, for the port.
 
-Twin of the anythingv3 and kandinsky2 parts of arbius_tpu/node/factory.py.
+Twin of the anythingv3, kandinsky2, zeroscopev2xl and damo parts of
+arbius_tpu/node/factory.py.
 Weights come from the caller (e.g. the bridge's `params_from_jax`) or
 from the pipeline's seeded random init (same FLOPs, no weights download).
 The other families, checkpoints and the CLIP BPE tokenizer are not ported
@@ -18,12 +19,14 @@ from arbius_tpu_torch.models.kandinsky2 import (
     Kandinsky2Pipeline,
 )
 from arbius_tpu_torch.models.sd15 import ByteTokenizer, SD15Config, SD15Pipeline
+from arbius_tpu_torch.models.video import Text2VideoConfig, Text2VideoPipeline
 from arbius_tpu_torch.node.config import ConfigError, MiningConfig, ModelConfig
 from arbius_tpu_torch.node.solver import (
     Kandinsky2Runner,
     ModelRegistry,
     RegisteredModel,
     SD15Runner,
+    Text2VideoRunner,
 )
 from arbius_tpu_torch.templates.engine import load_template
 
@@ -35,8 +38,7 @@ ANYTHINGV3_MODEL_ID = ("0x98617a8cd4a11db63100ad44bea4e5e296aecfd78b2ef06a"
 
 # templates of the reference that wait for a later slice, by ROADMAP.md
 # queue 1 item
-_QUEUED = {"textgen": 8, "zeroscopev2xl": 9, "damo": 9,
-           "robust_video_matting": 10}
+_QUEUED = {"textgen": 8, "robust_video_matting": 10}
 
 
 def tiny_byte_tokenizer(text_cfg) -> ByteTokenizer:
@@ -48,7 +50,11 @@ def tiny_byte_tokenizer(text_cfg) -> ByteTokenizer:
 # the ported templates' families: config, pipeline, runner
 _FAMILIES = {"anythingv3": (SD15Config, SD15Pipeline, SD15Runner),
              "kandinsky2": (Kandinsky2Config, Kandinsky2Pipeline,
-                            Kandinsky2Runner)}
+                            Kandinsky2Runner),
+             "zeroscopev2xl": (Text2VideoConfig, Text2VideoPipeline,
+                               Text2VideoRunner),
+             "damo": (Text2VideoConfig, Text2VideoPipeline,
+                      Text2VideoRunner)}
 
 
 def _runner(template: str, *, tiny: bool, device, params, seed: int,
@@ -87,7 +93,16 @@ def build_anythingv3(tiny: bool = False,
                                                params=params, seed=seed))
 
 
-def _check_ported(m: ModelConfig, mode: str) -> None:
+def _check_ported(m: ModelConfig, mode: str, mesh: dict | None) -> None:
+    devices = 1
+    for size in (mesh or {}).values():
+        devices *= int(size)
+    if m.template in ("zeroscopev2xl", "damo") and devices > 1:
+        raise ConfigError(
+            f"model {m.id}: mesh {mesh} (sp_strategy "
+            f"{m.sp_strategy!r}): the video family runs on one device; "
+            "frame-axis sequence parallelism waits for multi-device "
+            "(ROADMAP queue 1 item 11)")
     if m.template in _QUEUED:
         raise ConfigError(
             f"model {m.id}: template {m.template!r} is not ported yet "
@@ -119,7 +134,7 @@ def build_registry(cfg: MiningConfig, device: str | torch.device = "cuda",
             log.warning("model %s: unknown template %r; skipping",
                         m.id, m.template)
             continue
-        _check_ported(m, cfg.precision.mode_for(m.template))
+        _check_ported(m, cfg.precision.mode_for(m.template), cfg.mesh)
         if params is None:
             log.warning("model %s: no params given, using random init",
                         m.id)

@@ -1,12 +1,12 @@
 """Model registry + the deterministic solve path (inference -> bytes ->
 CID), for the port's runners.
 
-Twin of the image half of arbius_tpu/node/solver.py: `RegisteredModel`,
-`ModelRegistry`, `bucket_key`/`bucket_mode`, `chunk_items`,
-`solve_files_batch` (canonical-batch padding and the one-deep
-dispatch/finalize overlap), `solve_cid`/`solve_cid_batch` (with
-`evilmode`), `SD15Runner` and `Kandinsky2Runner`, under the reference's
-obs spans.
+Twin of the image and video parts of arbius_tpu/node/solver.py:
+`RegisteredModel`, `ModelRegistry`, `bucket_key`/`bucket_mode`,
+`chunk_items`, `solve_files_batch` (canonical-batch padding and the
+one-deep dispatch/finalize overlap), `solve_cid`/`solve_cid_batch` (with
+`evilmode`), `SD15Runner`, `Kandinsky2Runner` and `Text2VideoRunner`,
+under the reference's obs spans.
 
 Runners must be deterministic in (input, seed): the CID is what gets
 keccak'd into the on-chain commitment. cuBLAS and cuDNN choose kernels by
@@ -21,7 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from arbius_tpu_torch.codecs import encode_png
+from arbius_tpu_torch.codecs import encode_mp4_h264, encode_png
 from arbius_tpu_torch.l0.cid import cid_hex, cid_of_solution_files
 from arbius_tpu_torch.obs import span
 from arbius_tpu_torch.templates.engine import Template
@@ -278,3 +278,77 @@ class Kandinsky2Runner(SD15Runner):
             batch, int(hydrated.get("height", 768)),
             int(hydrated.get("width", 768)),
             int(hydrated.get("num_inference_steps", 50)), "DDIM")
+
+
+class Text2VideoRunner:
+    """zeroscopev2xl- and damo-template runner: UNet3D -> deterministic
+    H.264 MP4.
+
+    Template variables (templates/data/zeroscopev2xl.json, damo.json):
+    prompt, negative_prompt (zeroscopev2xl), num_frames,
+    num_inference_steps, width/height (zeroscopev2xl), guidance_scale
+    (zeroscopev2xl), fps; output out-1.mp4. What a task leaves out comes
+    from `defaults`, the reference's: 16 frames at 256x256, 20 steps,
+    guidance 9.0, fps 8 (hydration fills the template's own defaults
+    first: damo's 50 steps). The scheduler is DDIM."""
+
+    def __init__(self, pipeline, out_name: str = "out-1.mp4",
+                 defaults: dict | None = None):
+        self.pipeline = pipeline
+        self.out_name = out_name
+        self.defaults = {"num_frames": 16, "width": 256, "height": 256,
+                         "num_inference_steps": 20, "guidance_scale": 9.0,
+                         "fps": 8, **(defaults or {})}
+
+    def __call__(self, hydrated: dict, seed: int) -> dict:
+        return self.finalize(self.dispatch([(hydrated, seed)]), 1)[0]
+
+    def run_batch(self, items: list[tuple[dict, int]]) -> list[dict]:
+        """One batched dispatch for a whole shape bucket: every item
+        shares (num_frames, width, height, steps), while prompts,
+        negatives, seeds, guidance and the container-only fps vary per
+        item."""
+        return self.finalize(self.dispatch(items), len(items))
+
+    def _get(self, hydrated: dict, key: str):
+        v = hydrated.get(key)
+        return v if v is not None else self.defaults[key]
+
+    def dispatch(self, items: list[tuple[dict, int]]):
+        """Queue the bucket on the card and return without waiting for it
+        (`_to_host`); fps rides along to `finalize`, as it is the MP4
+        container's and not part of the program."""
+        first = items[0][0]
+        frames = self.pipeline.generate(
+            prompts=[h["prompt"] for h, _ in items],
+            negative_prompts=[h.get("negative_prompt", "") for h, _ in items],
+            seeds=[s for _, s in items],
+            num_frames=int(self._get(first, "num_frames")),
+            width=int(self._get(first, "width")),
+            height=int(self._get(first, "height")),
+            num_inference_steps=int(self._get(first, "num_inference_steps")),
+            guidance_scale=[float(self._get(h, "guidance_scale"))
+                            for h, _ in items],
+            as_device=True,
+        )
+        return _to_host(frames), [int(self._get(h, "fps")) for h, _ in items]
+
+    def finalize(self, dispatched, n_real: int) -> list[dict]:
+        """Dispatched chunk -> per-item MP4 files (waits for the chunk's
+        copy, then encodes on the host: all-intra H.264, codecs/h264.py)."""
+        (frames, done), fps = dispatched
+        if done is not None:
+            done.synchronize()
+        with span("solve.encode", n=n_real, codec="h264"):
+            frames = frames.numpy()
+            return [{self.out_name: encode_mp4_h264(
+                np.ascontiguousarray(frames[i]), fps=fps[i])}
+                for i in range(n_real)]
+
+    def cache_tag(self, hydrated: dict, batch: int) -> str:
+        """The bucket tag a dispatch of this task would use; defaults
+        mirror `dispatch` exactly."""
+        g = lambda k: self._get(hydrated, k)  # noqa: E731
+        return self.pipeline.bucket_tag(
+            batch, int(g("num_frames")), int(g("height")), int(g("width")),
+            int(g("num_inference_steps")), "DDIM")

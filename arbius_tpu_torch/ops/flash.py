@@ -9,14 +9,14 @@ aligned data (their loads are 16-byte copies or TMA boxes):
 
   - ``tensor_core_wgmma`` (``csrc/flash_attn_wgmma.cu``): Hopper's
     warpgroup products (wgmma) fed by TMA, consumer warpgroups taking
-    turns on them over a ring of key tiles, for D = 40, 80 and 160 at
-    any lengths. The UNet's self-attentions over more than 128 keys
+    turns on them over a ring of key tiles, for D = 40, 64, 80 and 160
+    at any lengths. The UNets' self-attentions over more than 128 keys
     take it.
   - ``tensor_core_wgmma_short`` (``csrc/flash_attn_wgmma_short.cu``):
     wgmma over one key tile, K and V resident and the query tiles
-    streamed through a TMA ring, O written by TMA stores, for D = 40, 80
-    and 160 with Skv <= 128. The UNet's 77-key cross-attentions and its
-    self-attentions of 128 tokens or fewer take it.
+    streamed through a TMA ring, O written by TMA stores, for D = 40, 64,
+    80 and 160 with Skv <= 128. The UNets' 77-key cross-attentions and
+    their self-attentions of 128 tokens or fewer take it.
   - ``tensor_core_wgmma_wide`` (``csrc/flash_attn_wgmma_wide.cu``): wgmma
     for D = 512 at any lengths, two consumer warpgroups splitting O by
     columns, each K/V box loaded once per thread-block cluster and
@@ -69,7 +69,7 @@ _ENTRY = {"tensor_core_wgmma": "arbius_flash_attn_wgmma_fwd",
 MAX_HEAD_DIM = 512
 # the wgmma kernels' head dims; the short one takes key lengths up to
 # WGMMA_SHORT_MAX_KV (one key tile)
-WGMMA_HEAD_DIMS = (40, 80, 160)
+WGMMA_HEAD_DIMS = (40, 64, 80, 160)
 WGMMA_SHORT_MAX_KV = 128
 TC_MAX_HEAD_DIM = 160
 TC_WIDE_HEAD_DIM = 512
@@ -121,8 +121,8 @@ def routes(dtype: torch.dtype, d: int, strides, pointers, sq: int,
     tensor-core routes need bf16 with every stride in `strides` (the B, H
     and S strides of q, k and v, in elements) a multiple of 8 and every
     data pointer in `pointers` 16-byte aligned; then
-    "tensor_core_wgmma_short" takes d in {40, 80, 160} with `skv` <= 128,
-    "tensor_core_wgmma" d in {40, 80, 160}, "tensor_core" 8 <= d <= 160
+    "tensor_core_wgmma_short" takes d in {40, 64, 80, 160} with `skv` <=
+    128, "tensor_core_wgmma" d in {40, 64, 80, 160}, "tensor_core" 8 <= d <= 160
     with d % 8 == 0, and "tensor_core_wgmma_wide" then "tensor_core_wide"
     d = 512. "cuda_core" takes every call. The short route comes before
     the wgmma one wherever both take a call: on the H100 it was 1.2-2.2x

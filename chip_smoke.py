@@ -24,8 +24,11 @@ its own lines with timings:
      640x640 bucket's shapes whose lengths those two lack (1600^2 at
      D = 80, 400^2 and 100^2 at D = 160, and their cross-attentions),
      and the VAE's call at the buckets whose length those lack (S = 256
-     at 128x128, 6400 at 640x640, 12288 at 1024x768 and 768x1024), and
-     kandinsky2's MoVQ call at 1024x1024 (S = 16384, B = 4, D = 512):
+     at 128x128, 6400 at 640x640, 12288 at 1024x768 and 768x1024),
+     kandinsky2's MoVQ call at 1024x1024 (S = 16384, B = 4, D = 512),
+     and a text-to-video chunk's calls at damo's and zeroscopev2xl's
+     default buckets (the UNet3D's D = 64 self- and cross-attentions,
+     S = 1024 to 16 and 9216 to 144, and the VAE's over the frames):
      every route that takes the shape (`ops.flash.routes_of`): the
      rule's choice, and forced beside it the wgmma route at the short
      one's shapes, the mma.sync route at every UNet shape, the mma.sync
@@ -89,17 +92,40 @@ its own lines with timings:
      pipeline re-solves them in other chunks with the same CIDs, one
      chunk traced by torch.profiler (kernels per chunk, device busy and
      idle share); one task keeps its CID among different neighbours at
-     1024x1024 and 768x1024 (4 steps); a MinerNode on LocalChain boots
+     1024x1024, 768x1024 and 1024x768 (4 steps); a MinerNode on
+     LocalChain boots
      with arbius_tpu_torch/goldens/kandinsky2.h100.bfloat16.json where
      the build matches (re-recorded where it differs), passes its
      self-test, mines the six tasks through claim, and each on-chain CID
      equals the main path's. Prints sol/h, p50 per chunk, device seconds
      per stage (text + prior, decoder loop, MoVQ) and the host's PNG +
      CID seconds.
+  9. text-to-video at full width (seeded random weights, bf16; the
+     UNet3D, the 24-layer text tower, the SD VAE): the tiny float32
+     config solved on the card and on the CPU with the temporal zero
+     inits filled (uint8 within one level); damo's default task (16
+     frames at 256x256, 50 steps, DDIM, guidance 9.0) for six template
+     inputs at canonical batch 4, with CIDs of the MP4 bytes,
+     commitments, finite frames none of them constant, and per chunk
+     the flash launches `expected_launches` derives from
+     `video_attention_shapes` (the D = 64 calls on the wgmma and short
+     routes, none on mma.sync or the CUDA cores, the VAE's on the wgmma
+     wide route); a fresh pipeline re-solves the tasks in other chunks
+     with the same CIDs, one chunk traced by torch.profiler (kernels,
+     busy and idle share); zeroscopev2xl's default bucket (24 frames at
+     1024x576) at ZS_STEPS steps keeps one task's CID among different
+     neighbours, printing the peak memory per stage; a MinerNode on
+     LocalChain boots with arbius_tpu_torch/goldens/damo.h100.bfloat16
+     .json where the build matches (re-recorded where it differs),
+     passes its self-test, mines the six tasks through claim, and each
+     on-chain CID equals the main path's. Prints sol/h, p50 per chunk,
+     device seconds and peak memory per stage (text, denoise loop, VAE)
+     and the host's H.264 + MP4 + CID seconds.
 
-Any failed check raises and the exit code is not 0. The last lines are
-the card, a `kernels` JSON line (with each route's launches in phases
-4, 6, 7 and 8) and `{"ok": true, "device": {...}}`.
+Each phase prints its wall seconds. Any failed check raises and the exit
+code is not 0. The last lines are the card, a `kernels` JSON line (with
+each route's launches in phases 4, 6, 7, 8 and 9) and
+`{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, where CUDA is not available.
 """
 from __future__ import annotations
@@ -176,11 +202,61 @@ TASK_FEE = 10           # AIUS per on-chain task of phase 6
 # defaults (50 steps, DDIM, guidance 4.0), and the buckets of the
 # neighbour check beside it (at K2_BUCKET_STEPS)
 K2_SIZE = 768
-K2_BUCKETS = ((1024, 1024), (768, 1024))
+K2_BUCKETS = ((1024, 1024), (768, 1024), (1024, 768))
 K2_BUCKET_STEPS = 4
 K2_GOLDEN_FILE = "arbius_tpu_torch/goldens/kandinsky2.h100.bfloat16.json"
 K2_GOLDEN_INPUT = {"prompt": "arbius test cat", "width": K2_SIZE,
                    "height": K2_SIZE}
+
+
+# phase 9, text-to-video: damo's default task (the template's 16 frames
+# and 50 steps, the runner's 256x256, guidance 9.0, DDIM) is the main
+# path; zeroscopev2xl's template default (24 frames at 1024x576) is the
+# second bucket, solved at ZS_STEPS
+VIDEO_FRAMES, VIDEO_SIZE, VIDEO_STEPS = 16, 256, 50
+ZS_FRAMES, ZS_WIDTH, ZS_HEIGHT, ZS_STEPS = 24, 1024, 576, 2
+VIDEO_GOLDEN_FILE = "arbius_tpu_torch/goldens/damo.h100.bfloat16.json"
+VIDEO_GOLDEN_INPUT = {"prompt": "arbius test cat"}
+# the UNet3D's spatial transformers per latent level, as UNET_LEVELS:
+# (channels, transformers); head dim 64, so channels / 64 heads
+UNET3D_LEVELS = ((320, 5), (640, 5), (1280, 5), (1280, 1))
+
+
+def video_attention_shapes(width: int, height: int, frames: int,
+                           steps: int, batch: int = CANONICAL_BATCH
+                           ) -> tuple:
+    """(B, H, Sq, Skv, D, launches per chunk) of every flash call of one
+    text-to-video chunk at `width` x `height` x `frames`: each UNet3D
+    spatial transformer's self- and cross-attention (77 text keys) once
+    per step over the 2 x batch x frames maps of the guidance batch, and
+    the VAE mid block's single-head D = 512 attention over the
+    batch x frames frames in `vae_frames_per_call` groups. The temporal
+    attentions are plain torch, as in the reference: none reaches
+    ops/flash."""
+    from arbius_tpu_torch.models.video import vae_frames_per_call
+
+    tokens = (width // 8) * (height // 8)
+    out = []
+    for level, (ch, n) in enumerate(UNET3D_LEVELS):
+        s = tokens // 4 ** level
+        b = 2 * batch * frames
+        out += [(b, ch // 64, s, s, 64, n * steps),
+                (b, ch // 64, s, KV_TEXT, 64, n * steps)]
+    per = vae_frames_per_call(height, width)
+    full, rest = divmod(batch * frames, per)
+    if full:
+        out.append((per, 1, tokens, tokens, 512, full))
+    if rest:
+        out.append((rest, 1, tokens, tokens, 512, 1))
+    return tuple(out)
+
+
+DAMO_SHAPES = video_attention_shapes(VIDEO_SIZE, VIDEO_SIZE, VIDEO_FRAMES,
+                                     VIDEO_STEPS)
+# zeroscopev2xl's default bucket at its template's 50 steps (phase 2's
+# times per chunk); phase 9 runs it at ZS_STEPS
+ZEROSCOPE_SHAPES = video_attention_shapes(ZS_WIDTH, ZS_HEIGHT, ZS_FRAMES,
+                                          50)
 
 
 def movq_attention_shapes(width: int, height: int,
@@ -205,6 +281,25 @@ def expected_launches(torch, flash, shapes=MAIN_PATH_SHAPES
         strides = [st for s in (sq, skv, skv) for st in (s * h * d, d, h * d)]
         out[flash.route(torch.bfloat16, d, strides, [0, 0, 0], sq,
                         skv)] += count
+    return out
+
+
+def serialisation_notes(report: str) -> dict[str, list[str]]:
+    """ptxas's notes C7510-C7520 (wgmma products serialised) in a build
+    report, by the template arguments of the kernel each names (`<64>`,
+    `<64,128>`; `<?>` where the name carries none)."""
+    import re
+
+    out: dict[str, list[str]] = {}
+    for line in report.splitlines():
+        code = re.search(r"\((C75\d\d)\)", line)
+        if code is None:
+            continue
+        args = re.findall(r"ILi(\d+)E(?:Li(\d+)E)?", line)
+        key = "<" + ",".join(a for a in args[0] if a) + ">" if args else "<?>"
+        out.setdefault(key, [])
+        if code.group(1) not in out[key]:
+            out[key].append(code.group(1))
     return out
 
 
@@ -326,7 +421,9 @@ def _check_shape(torch, flash, gen, dtype, shape, bucket) -> list[dict]:
                .to(dtype) for s in (sq, skv, skv))
     routes = flash.routes_of(q, k, v)
     main = routes[0]
-    iters = 5 if sq * skv >= 1 << 20 else 20
+    # zeroscopev2xl's 9216^2 calls: ~2 s each on the CUDA cores
+    huge = b * h * sq * skv >= 1 << 34
+    iters = 2 if huge else 5 if sq * skv >= 1 << 20 else 20
     plain_ms = lib_ms = None
     if dtype == torch.bfloat16:
         # the plain version over slices of the batch where its scores
@@ -359,7 +456,8 @@ def _check_shape(torch, flash, gen, dtype, shape, bucket) -> list[dict]:
             ms = cuda_ms(torch, lambda: flash.flash_attention(
                 q, k, v, kernel=route), iters)
             enqueue = host_us(
-                torch, lambda: flash.flash_attention(q, k, v, kernel=route))
+                torch, lambda: flash.flash_attention(q, k, v, kernel=route),
+                calls=5 if huge else 50)
             line.update(ms=ms, **enqueue, plain_ms=plain_ms,
                         library_ms=lib_ms, bound_ms=max(limits.values()),
                         bound_by=max(limits, key=limits.get),
@@ -425,13 +523,17 @@ def per_route(lines) -> dict:
 def kernel_buckets() -> tuple:
     """Phase 2's (bucket, shapes) sets: the main path (512x512), the
     template's default bucket (768x768), the 640x640 bucket's ragged
-    UNet shapes, the VAE's call at each length those lack, and
-    kandinsky2's MoVQ call at 1024x1024 (S = 16384; its 768x768 and
-    768x1024 calls are the VAE's S = 9216 and 12288)."""
+    UNet shapes, the VAE's call at each length those lack, kandinsky2's
+    MoVQ call at 1024x1024 (S = 16384; its 768x768 and 768x1024 calls
+    are the VAE's S = 9216 and 12288), and the text-to-video chunks at
+    damo's and zeroscopev2xl's default buckets (the UNet3D's D = 64
+    calls and the VAE's over the frames)."""
     return (("512x512", MAIN_PATH_SHAPES), ("768x768", BUCKET_768_SHAPES),
             ("640x640", BUCKET_640_RAGGED_SHAPES),
             *((f"VAE S={s[2]}", (s,)) for s in VAE_BUCKET_SHAPES),
-            ("MoVQ S=16384", movq_attention_shapes(1024, 1024)))
+            ("MoVQ S=16384", movq_attention_shapes(1024, 1024)),
+            ("damo 256x256x16", DAMO_SHAPES),
+            ("zeroscopev2xl 1024x576x24", ZEROSCOPE_SHAPES))
 
 
 def phase_kernels(torch, flash) -> dict:
@@ -455,7 +557,7 @@ def kernel_entries(flash, buckets: dict, launches: dict) -> list[dict]:
     """The `kernels` line: per route, phase 2's summaries (`buckets`, as
     `phase_kernels` returns them; times per 512x512 batch, and per batch
     of each other bucket timed) beside `launches`, each a name mapped to
-    the route's launch counts of one run (phases 4, 6, 7 and 8)."""
+    the route's launch counts of one run (phases 4, 6, 7, 8 and 9)."""
     tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
     names = {"cuda_core": "flash_attention",
              "tensor_core": "flash_attention_tc",
@@ -1033,12 +1135,13 @@ def node_run_world(inputs: list[dict], *, device: str, tiny: bool,
                                    events["SolutionClaimed"]) - first}
 
 
-def k2_world(inputs: list[dict], miner: str, user: str):
-    """An in-process chain with the kandinsky2 template registered, the
-    miner and the user funded; `inputs` go on chain as the user's tasks
-    when `submit` is called. Engine ids are deterministic, so two worlds
-    built alike give the same taskids: phase 8 solves a first world's
-    tasks directly and mines a second's."""
+def template_world(inputs: list[dict], miner: str, user: str,
+                   template: str = "kandinsky2"):
+    """An in-process chain with `template` registered, the miner and the
+    user funded; `inputs` go on chain as the user's tasks when `submit`
+    is called. Engine ids are deterministic, so two worlds built alike
+    give the same taskids: phases 8 and 9 solve a first world's tasks
+    directly and mine a second's."""
     from arbius_tpu_torch.chain import WAD, Engine, TokenLedger
     from arbius_tpu_torch.templates import load_template_bytes
 
@@ -1049,7 +1152,7 @@ def k2_world(inputs: list[dict], miner: str, user: str):
         tok.mint(a, 1000 * WAD)
         tok.approve(a, Engine.ADDRESS, 10**30)
     mid_b = eng.register_model(user, user, 0,
-                               load_template_bytes("kandinsky2"))
+                               load_template_bytes(template))
 
     def submit() -> list[str]:
         return ["0x" + eng.submit_task(
@@ -1067,58 +1170,89 @@ def k2_inputs() -> list[dict]:
 
 
 class StageClock:
-    """CUDA events at the stage boundaries of each kandinsky2 chunk
-    (before the text tower, before the first decoder call, before MoVQ,
-    after it), and whether each chunk's pixels are finite and each
-    image not constant, from hooks on the pipeline's modules. Nothing
-    waits for the card until `read`."""
+    """CUDA events at the stage boundaries of each chunk of a pipeline,
+    from hooks on its modules: `stages` names each stage after the module
+    whose first call in the chunk starts it ([(name, module), ...], in
+    order; the first module's call after a chunk's end opens the next),
+    and the last module's last call ends the chunk. Also the allocator's
+    peak GiB over each stage (read and reset at those boundaries on the
+    host, where the allocations are made), and whether each call of the
+    last module gave finite pixels and no constant image. Nothing waits
+    for the card until `read`."""
 
-    def __init__(self, torch, models):
+    def __init__(self, torch, stages):
         from arbius_tpu_torch.models.sd15 import decode_to_images
 
-        self.torch, self.marks, self.flags = torch, [], []
+        self.torch, self.marks, self.peaks, self.flags = torch, [], [], []
         self.decode = decode_to_images
-        models.text.register_forward_pre_hook(self._hook("text"))
-        models.decoder.register_forward_pre_hook(self._hook("decoder"))
-        models.movq.register_forward_pre_hook(self._hook("movq"))
-        models.movq.register_forward_hook(self._pixels)
+        self.names = [name for name, _ in stages]
+        for name, module in stages:
+            module.register_forward_pre_hook(self._hook(name))
+        stages[-1][1].register_forward_hook(self._pixels)
+
+    def _mark(self, key: str, ended: str | None) -> None:
+        """An event under `key`, closing stage `ended`'s peak."""
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks[-1][key] = ev
+        if ended is not None:
+            peak = self.torch.cuda.max_memory_allocated() / 2**30
+            self.peaks[-1][ended] = max(self.peaks[-1].get(ended, 0.0), peak)
+        self.torch.cuda.reset_peak_memory_stats()
 
     def _hook(self, name):
+        i = self.names.index(name)
+
         def hook(_mod, _inp):
-            if name == "text":
+            if i == 0 and (not self.marks or "end" in self.marks[-1]):
                 self.marks.append({})
-            if name not in self.marks[-1]:   # the first decoder call
-                ev = self.torch.cuda.Event(enable_timing=True)
-                ev.record()
-                self.marks[-1][name] = ev
+                self.peaks.append({})
+            if name not in self.marks[-1]:   # the stage's first call
+                self._mark(name, self.names[i - 1] if i else None)
         return hook
 
     def _pixels(self, _mod, _inp, pixels):
-        ev = self.torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.marks[-1]["end"] = ev
-        self.images = self.decode(pixels)    # the last chunk's, on the card
+        self.marks[-1].pop("end", None)   # the chunk's last call ends it
+        self._mark("end", self.names[-1])
+        self.images = self.decode(pixels)   # the last call's, on the card
         u = self.images.flatten(1)
         self.flags.append((self.torch.isfinite(pixels).all(),
                            (u.amax(1) > u.amin(1)).all()))
 
     def read(self) -> list[dict]:
-        """Per chunk since the last read, the device seconds of text +
-        prior, the decoder loop and MoVQ; clears them."""
+        """Per chunk since the last read, the device seconds of each
+        stage and the peak GiB allocated in it; clears them."""
         self.torch.cuda.synchronize()
-        out = [{stage: m[a].elapsed_time(m[b]) / 1e3
-                for stage, a, b in (("text+prior", "text", "decoder"),
-                                    ("decoder loop", "decoder", "movq"),
-                                    ("movq", "movq", "end"))}
-               for m in self.marks]
-        self.marks = []
+        bounds = list(zip(self.names, self.names[1:] + ["end"]))
+        out = [{**{a: m[a].elapsed_time(m[b]) / 1e3 for a, b in bounds},
+                **{f"peak GiB {k}": v for k, v in p.items()}}
+               for m, p in zip(self.marks, self.peaks)]
+        self.marks, self.peaks = [], []
         return out
 
     def images_ok(self, n: int) -> bool:
+        """Whether the last module ran `n` times since the last check,
+        each with finite pixels and no constant image; clears the
+        flags."""
         ok = len(self.flags) == n and all(bool(f) and bool(c)
                                           for f, c in self.flags)
         self.flags = []
         return ok
+
+
+def k2_clock(torch, models) -> StageClock:
+    """Phase 8's stages: text + prior, the decoder loop, MoVQ."""
+    return StageClock(torch, [("text+prior", models.text),
+                              ("decoder loop", models.decoder),
+                              ("movq", models.movq)])
+
+
+def video_clock(torch, models) -> StageClock:
+    """Phase 9's stages: text, the denoise loop, the VAE (its calls over
+    the frame groups)."""
+    return StageClock(torch, [("text", models.text),
+                              ("denoise loop", models.unet),
+                              ("vae", models.vae)])
 
 
 def device_trace_summary(trace: dict, top: int = 8) -> dict:
@@ -1189,7 +1323,7 @@ def phase_kandinsky2(torch, flash) -> dict:
           f"the rule sends MoVQ's call elsewhere: {want}")
     miner, user = "0x" + "aa" * 20, "0x" + "01" * 20
     inputs = k2_inputs()
-    tids = k2_world(inputs, miner, user)[3]()
+    tids = template_world(inputs, miner, user)[3]()
     items = [(hydrate_input(dict(raw), template), taskid2seed(tid))
              for raw, tid in zip(inputs, tids)]
 
@@ -1209,7 +1343,7 @@ def phase_kandinsky2(torch, flash) -> dict:
     n_params = sum(p.numel() for p in models.parameters())
     print(f"kandinsky2: built full width ({n_params} parameters, bf16 "
           f"weights) in {time.perf_counter() - t0:.1f} s", flush=True)
-    clock = StageClock(torch, models)
+    clock = k2_clock(torch, models)
     flash.reset_launches()
     t0 = time.perf_counter()
     solved = solve_cid_batch(model, items, canonical_batch=CANONICAL_BATCH)
@@ -1239,7 +1373,7 @@ def phase_kandinsky2(torch, flash) -> dict:
 
     # -- determinism: a fresh pipeline, other chunks ---------------------------
     fresh = build()
-    clock = StageClock(torch, fresh.runner.pipeline.models)
+    clock = k2_clock(torch, fresh.runner.pipeline.models)
     latencies, chunk_stages = [], []
     runs = ([2, 4, 0, 1], [5, 3], [1, 0, 3, 2])
     trace = None
@@ -1357,7 +1491,7 @@ def phase_kandinsky2(torch, flash) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    tok, eng, mid, submit = k2_world(inputs, miner, user)
+    tok, eng, mid, submit = template_world(inputs, miner, user)
     chain = LocalChain(eng, miner)
     chain.validator_deposit(100 * WAD)
     cfg = config(mid, golden)
@@ -1372,7 +1506,7 @@ def phase_kandinsky2(torch, flash) -> dict:
           f"{flash.flash_attention.launches_by_route}, expected {want}")
     print(f"kandinsky2 node: booted with golden {golden['cid']} ({source}); "
           f"self-test passed in {boot_s:.2f} s", flush=True)
-    clock = StageClock(torch, registry.get(mid).runner.pipeline.models)
+    clock = k2_clock(torch, registry.get(mid).runner.pipeline.models)
     check(submit() == tids, "kandinsky2: the second world's taskids differ")
     flash.reset_launches()
     t0 = time.perf_counter()
@@ -1419,6 +1553,354 @@ def phase_kandinsky2(torch, flash) -> dict:
     return {"launches": launches, "launches_node": node_launches}
 
 
+def video_inputs(n: int = 6, **extra) -> list[dict]:
+    """Phase 9's template inputs: a prompt (the template's and the
+    runner's defaults fill the rest), plus `extra`."""
+    return [{"prompt": f"a lighthouse on a cliff at dusk, waves, clip {i}",
+             **extra} for i in range(n)]
+
+
+def phase_video_small_reference(torch) -> None:
+    """The tiny float32 text-to-video config solved on the card and on the
+    CPU from the same weights, the reference's temporal zero inits filled
+    with seeded values (else the temporal branches add nothing)."""
+    import dataclasses
+
+    from arbius_tpu_torch.models.video import (
+        Text2VideoConfig,
+        Text2VideoPipeline,
+    )
+    from arbius_tpu_torch.node.factory import tiny_byte_tokenizer
+
+    r = dataclasses.replace
+    tiny = Text2VideoConfig.tiny()
+    cfg = Text2VideoConfig(r(tiny.unet, dtype="float32"),
+                           r(tiny.vae, dtype="float32"),
+                           r(tiny.text, dtype="float32"))
+    pipes = [Text2VideoPipeline(cfg, tiny_byte_tokenizer(cfg.text),
+                                device=dev) for dev in ("cpu", "cuda")]
+    params = pipes[0].init_params(seed=0)
+    gen = torch.Generator().manual_seed(9)
+    for key in pipes[0].models.unet.zero_init_keys():
+        w = params[f"unet.{key}"]
+        params[f"unet.{key}"] = 0.1 * torch.randn(w.shape, generator=gen)
+    frames = []
+    for pipe in pipes:
+        pipe.load_params(params)
+        frames.append(pipe.generate(
+            ["a lighthouse", "b"], ["", "blurry"], [1, 2**40 + 3],
+            num_frames=3, width=64, height=64, num_inference_steps=2,
+            guidance_scale=[9.0, 3.0]).astype(int))
+    diff = abs(frames[0] - frames[1])
+    print(f"video small reference: tiny f32 3 frames 64x64, temporal zero "
+          f"inits filled, card vs CPU: max uint8 diff {diff.max()}, "
+          f"differing fraction {(diff > 0).mean():.6f}", flush=True)
+    check(diff.max() <= 1 and (diff > 0).mean() <= 0.01,
+          "tiny video card solve disagrees with the CPU solve")
+
+
+def phase_video(torch, flash) -> dict:
+    """Phase 9: text-to-video at full width (seeded random weights, bf16).
+    The small reference first; then damo's default task (16 frames at
+    256x256, 50 steps, DDIM, guidance 9.0): six template inputs at the
+    canonical batch, CIDs of the MP4 bytes, commitments, finite and
+    non-constant frames, launches per chunk per route as
+    `expected_launches` derives them from `video_attention_shapes`; a
+    fresh pipeline re-solves them in other chunks (CIDs equal, one chunk
+    traced by torch.profiler); zeroscopev2xl's default bucket (24 frames
+    at 1024x576) at ZS_STEPS steps keeps one task's CID among different
+    neighbours, with the peak memory per stage; a MinerNode on
+    LocalChain boots with the committed damo golden (re-recorded where
+    the build differs), passes its self-test, mines the six tasks through
+    claim, and each on-chain CID equals the main path's. Returns the
+    launches per route of the main path and of the node's mining."""
+    import tempfile
+
+    from arbius_tpu_torch.chain import WAD
+    from arbius_tpu_torch.cli import build_info, record_golden
+    from arbius_tpu_torch.codecs import encode_mp4_h264
+    from arbius_tpu_torch.l0 import generate_commitment, taskid2seed
+    from arbius_tpu_torch.l0.cid import cid_hex, cid_of_solution_files
+    from arbius_tpu_torch.node import (
+        LocalChain,
+        MinerNode,
+        MiningConfig,
+        ModelConfig,
+        build_registry,
+        solve_cid_batch,
+    )
+    from arbius_tpu_torch.templates import hydrate_input, load_template
+    from arbius_tpu_torch.utils import card_info
+
+    card = card_info()
+    t_phase = time.perf_counter()
+    phase_video_small_reference(torch)
+    template = load_template("damo")
+    want = expected_launches(torch, flash, DAMO_SHAPES)
+    vae_calls = sum(n for *_, d, n in DAMO_SHAPES if d == 512)
+    check(want["tensor_core_wgmma"] + want["tensor_core_wgmma_short"]
+          == 16 * 2 * VIDEO_STEPS and want["tensor_core"] == 0
+          and want["cuda_core"] == 0,
+          f"the rule sends the UNet3D's D = 64 calls elsewhere: {want}")
+    miner, user = "0x" + "aa" * 20, "0x" + "01" * 20
+    inputs = video_inputs()
+    tids = template_world(inputs, miner, user, "damo")[3]()
+    items = [(hydrate_input(dict(raw), template), taskid2seed(tid))
+             for raw, tid in zip(inputs, tids)]
+    check(all(h["num_frames"] == VIDEO_FRAMES and
+              h["num_inference_steps"] == VIDEO_STEPS for h, _ in items),
+          "damo's template defaults are not 16 frames, 50 steps")
+
+    def config(template_name, mid, golden=None):
+        return MiningConfig(canonical_batch=CANONICAL_BATCH, models=(
+            ModelConfig(id=mid, template=template_name,
+                        weights_dtype="bfloat16", golden=golden),))
+
+    def build(template_name="damo", mid="0x" + "00" * 32, golden=None):
+        return build_registry(config(template_name, mid, golden),
+                              device="cuda").get(mid)
+
+    # -- main path: six tasks, two chunks ------------------------------------
+    t0 = time.perf_counter()
+    model = build()
+    torch.cuda.synchronize()
+    models = model.runner.pipeline.models
+    n_params = sum(p.numel() for p in models.parameters())
+    n_unet = sum(p.numel() for p in models.unet.parameters())
+    print(f"video: built damo at full width ({n_params} parameters, "
+          f"{n_unet} of them the UNet3D's; bf16 weights) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    clock = video_clock(torch, models)
+    flash.reset_launches()
+    n_chunks = -(-len(items) // CANONICAL_BATCH)
+    t0 = time.perf_counter()
+    solved = solve_cid_batch(model, items, canonical_batch=CANONICAL_BATCH)
+    wall = time.perf_counter() - t0
+    launches = dict(flash.flash_attention.launches_by_route)
+    check(launches == {r: n * n_chunks for r, n in want.items()},
+          f"video launches {launches}, expected {want} x {n_chunks}")
+    check(clock.images_ok(n_chunks * vae_calls), "video: non-finite or "
+          "constant frames")
+    stages = clock.read()
+    cids = [cid for cid, _ in solved]
+    for tid, (cid, files) in zip(tids, solved):
+        check(len(cid) == 2 + 68 and cid.startswith("0x1220"),
+              f"video: bad CIDv0 {cid}")
+        check(set(files) == {"out-1.mp4"} and
+              files["out-1.mp4"][4:8] == b"ftyp",
+              f"video: unexpected files {set(files)}")
+        check(len(generate_commitment(ADDRESS, tid, cid)) == 32,
+              "commitment is not 32 bytes")
+    print(f"video: solved {len(items)} damo tasks ({VIDEO_FRAMES} frames "
+          f"at {VIDEO_SIZE}x{VIDEO_SIZE}, {VIDEO_STEPS} steps, DDIM, "
+          f"guidance 9.0) in {n_chunks} chunks in {wall:.2f} s "
+          f"({len(items) / wall * 3600:.1f} solutions/h on {card}); flash "
+          f"launches {launches}; CIDs " + " ".join(cids), flush=True)
+    del model, models, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- determinism: a fresh pipeline, other chunks -------------------------
+    fresh = build()
+    clock = video_clock(torch, fresh.runner.pipeline.models)
+    latencies, chunk_stages = [], []
+    runs = ([2, 4, 0, 1], [5, 3], [1, 0, 3, 2])
+    trace = None
+    for n, idx in enumerate(runs):
+        traced = n == len(runs) - 1
+        flash.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if traced:   # the last run under torch.profiler, CUDA activity
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                again = solve_cid_batch(fresh, [items[i] for i in idx],
+                                        canonical_batch=CANONICAL_BATCH)
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as work:
+                path = pathlib.Path(work) / "chunk.json"
+                prof.export_chrome_trace(str(path))
+                trace = device_trace_summary(json.loads(path.read_text()))
+        else:
+            again = solve_cid_batch(fresh, [items[i] for i in idx],
+                                    canonical_batch=CANONICAL_BATCH)
+            latencies.append(time.perf_counter() - t0)
+            chunk_stages += clock.read()
+        check(flash.flash_attention.launches_by_route == want,
+              f"video chunk {idx}: launches "
+              f"{flash.flash_attention.launches_by_route}, expected {want}")
+        for i, (cid, _) in zip(idx, again):
+            check(cid == cids[i], f"video task {i}: CID {cid} != "
+                  f"{cids[i]} (fresh pipeline, chunk {idx})")
+    clock.read()    # the traced chunk's stages carry the profiler's cost
+    check(clock.images_ok(len(runs) * vae_calls), "video: non-finite or "
+          "constant frames in the determinism runs")
+    check(trace is not None and trace["kernels"] > 0,
+          f"video: no kernels in the traced chunk: {trace}")
+    p50 = statistics.median(latencies)
+    # the host's H.264 + MP4 + CID of the last chunk's videos, as the
+    # solver does
+    videos = clock.images.view(CANONICAL_BATCH, VIDEO_FRAMES,
+                               *clock.images.shape[1:]).cpu().numpy()
+    t0 = time.perf_counter()
+    for video in videos:
+        cid_hex(cid_of_solution_files(
+            {"out-1.mp4": encode_mp4_h264(video, fps=8)}))
+    encode_s = time.perf_counter() - t0
+    print(f"video determinism: fresh pipeline, chunks {list(runs)}: CIDs "
+          f"identical (task 0 among neighbours 1-3 and among 2, 4, 1), "
+          f"launches per chunk {want}; per-chunk latency s "
+          f"{[round(x, 3) for x in latencies]} (host clock, to MP4 and "
+          f"CID), p50 {p50:.3f} s ({CANONICAL_BATCH * 3600 / p50:.1f} "
+          f"solutions/h at full batches, {card})", flush=True)
+    stage_s = {k: statistics.median(c[k] for c in stages + chunk_stages)
+               for k in stages[0]}
+    print("video stages (device seconds between CUDA events and peak GiB "
+          f"allocated, median of {len(stages + chunk_stages)} chunks): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_s.items())
+          + f"; H.264 + MP4 + CID of one chunk's {CANONICAL_BATCH} videos "
+          f"{encode_s:.3f} s (host); {card}", flush=True)
+    flash_n = sum(want.values())
+    print(f"video launches per chunk (chunk {runs[-1]} traced by "
+          f"torch.profiler): {trace['kernels']} kernels, of them {flash_n} "
+          f"flash; device busy {trace['busy_ms']:.1f} ms of a "
+          f"{trace['span_ms']:.1f} ms span, idle share "
+          f"{trace['idle_share']:.3f}; {card}", flush=True)
+    print("video traced chunk, kernels by device time (name, ms, "
+          "launches): " + json.dumps(trace["top"]), flush=True)
+
+    # -- node: golden, boot with the self-test, mine, claim -------------------
+    committed = json.loads(
+        (pathlib.Path(__file__).resolve().parent / VIDEO_GOLDEN_FILE)
+        .read_text())
+    check(committed["golden"]["input"] == VIDEO_GOLDEN_INPUT
+          and committed["golden"]["seed"] == GOLDEN_SEED
+          and committed["canonical_batch"] == CANONICAL_BATCH
+          and committed["template"] == "damo",
+          f"{VIDEO_GOLDEN_FILE} is not the vector phase 9 boots with")
+    build_now = {k: build_info("cuda").get(k) for k in BUILD_FIELDS}
+    built = {k: committed["build"].get(k) for k in BUILD_FIELDS}
+    if build_now == built:
+        golden, source = committed["golden"], VIDEO_GOLDEN_FILE
+    else:
+        rec = record_golden(fresh, VIDEO_GOLDEN_INPUT, GOLDEN_SEED,
+                            canonical_batch=CANONICAL_BATCH, device="cuda")
+        golden = rec["golden"]
+        source = f"re-recorded here: this build {build_now} is not {built}"
+    del fresh, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tok, eng, mid, submit = template_world(inputs, miner, user, "damo")
+    chain = LocalChain(eng, miner)
+    chain.validator_deposit(100 * WAD)
+    cfg = config("damo", mid, golden)
+    registry = build_registry(cfg, device="cuda")
+    node = MinerNode(chain, cfg, registry)
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    node.boot()
+    boot_s = time.perf_counter() - t0
+    check(flash.flash_attention.launches_by_route == want,
+          f"video self-test launches "
+          f"{flash.flash_attention.launches_by_route}, expected {want}")
+    print(f"video node: booted with golden {golden['cid']} ({source}); "
+          f"self-test passed in {boot_s:.2f} s", flush=True)
+    check(submit() == tids, "video: the second world's taskids differ")
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    while node.tick():
+        pass
+    mine_s = time.perf_counter() - t0
+    node_launches = dict(flash.flash_attention.launches_by_route)
+    check(node.db.failed_jobs() == [],
+          f"video node: failed jobs {node.db.failed_jobs()}")
+    check(node_launches == launches, f"video node: launches "
+          f"{node_launches}, expected {launches}")
+    for tid, want_cid in zip(tids, cids):
+        sol = eng.solutions.get(bytes.fromhex(tid[2:]))
+        check(sol is not None and sol.validator == miner,
+              f"video task {tid} not solved by the miner: {sol}")
+        cid = "0x" + sol.cid.hex()
+        check(cid == want_cid, f"video task {tid}: on-chain {cid} != "
+              f"main path {want_cid}")
+        check(chain.generate_commitment(tid, cid) in eng.commitments,
+              f"video task {tid}: no commitment matching {cid}")
+    bal0 = tok.balance_of(miner)
+    eng.advance_time(eng.min_claim_solution_time
+                     + cfg.claim_delay_buffer + 1)
+    while node.tick():
+        pass
+    rise = tok.balance_of(miner) - bal0
+    check(node.metrics.solutions_claimed == len(tids)
+          and rise == len(tids) * TASK_FEE * WAD * 9 // 10,
+          f"video node: claimed {node.metrics.solutions_claimed} of "
+          f"{len(tids)}, +{rise}")
+    infer = sum(node.metrics.stage_seconds["infer"])
+    node.close()
+    print(f"video node: mined {len(tids)} damo tasks in {n_chunks} "
+          f"chunks, {mine_s:.2f} s host time from the first tick to the "
+          f"last reveal (infer {infer:.3f} s, "
+          f"{CANONICAL_BATCH * n_chunks * 3600 / infer:.1f} sol/h at full "
+          f"batches); on-chain CIDs equal the main path's; claimed "
+          f"{len(tids)}, +{rise / WAD:g} AIUS; {card}", flush=True)
+    del node, registry
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- zeroscopev2xl's default bucket: one task among neighbours ------------
+    zs_template = load_template("zeroscopev2xl")
+    zs_items = []
+    # the template requires a negative prompt: its default
+    for i, raw in enumerate(video_inputs(
+            negative_prompt="noisy, washed out, ugly, distorted, broken",
+            num_inference_steps=ZS_STEPS)):
+        taskid = "0x" + f"{0x7C7C * (i + 3):x}".rjust(64, "5")
+        zs_items.append((hydrate_input(raw, zs_template),
+                         taskid2seed(taskid)))
+    h0 = zs_items[0][0]
+    check((h0["num_frames"], h0["width"], h0["height"]) ==
+          (ZS_FRAMES, ZS_WIDTH, ZS_HEIGHT),
+          f"zeroscopev2xl's template default is not {ZS_FRAMES} frames at "
+          f"{ZS_WIDTH}x{ZS_HEIGHT}: {h0}")
+    zs_want = expected_launches(torch, flash, video_attention_shapes(
+        ZS_WIDTH, ZS_HEIGHT, ZS_FRAMES, ZS_STEPS))
+    zs = build("zeroscopev2xl")
+    clock = video_clock(torch, zs.runner.pipeline.models)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = []
+    for chunk in ([0, 1, 2, 3], [4, 0, 5]):
+        flash.reset_launches()
+        out = solve_cid_batch(zs, [zs_items[i] for i in chunk],
+                              canonical_batch=CANONICAL_BATCH)
+        check(flash.flash_attention.launches_by_route == zs_want,
+              f"zeroscopev2xl: launches "
+              f"{flash.flash_attention.launches_by_route}, expected "
+              f"{zs_want}")
+        got.append(out[chunk.index(0)][0])
+    zs_s = time.perf_counter() - t0
+    check(got[0] == got[1], f"zeroscopev2xl: task 0's CID {got[0]} among "
+          f"neighbours 1-3, {got[1]} among 4 and 5")
+    check(clock.images_ok(2 * zs_want["tensor_core_wgmma_wide"]),
+          "zeroscopev2xl: non-finite or constant frames")
+    zs_stages = clock.read()
+    print(f"video zeroscopev2xl: {ZS_FRAMES} frames at "
+          f"{ZS_WIDTH}x{ZS_HEIGHT}, {ZS_STEPS} steps, guidance 17.5: task "
+          f"0 keeps CID {got[0]} among different neighbours; launches per "
+          f"chunk {zs_want}; two chunks in {zs_s:.1f} s; per chunk, device "
+          "seconds and peak GiB allocated per stage "
+          + json.dumps([{k: round(v, 3) for k, v in c.items()}
+                        for c in zs_stages])
+          + f"; {card}", flush=True)
+    del zs, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"video: phase 9 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches, "launches_node": node_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1431,6 +1913,15 @@ def main() -> int:
     from arbius_tpu_torch.ops import _build, flash
     from arbius_tpu_torch.templates import hydrate_input, load_template
     from arbius_tpu_torch.utils import card_info, setup_device
+
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def wall_mark(name: str) -> None:
+        """The wall seconds since the last mark, under `name`."""
+        now = time.perf_counter()
+        walls[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+        print(f"phase {name}: {walls[name]} s wall", flush=True)
 
     # -- 1. setup -------------------------------------------------------
     setup_device("cuda")
@@ -1452,10 +1943,11 @@ def main() -> int:
                 if "registers" in r]
         for reg, spill in zip(regs, spills):   # one pair per instantiation
             print(f"  {source} ptxas: {reg}; {spill}")
-        # ptxas's notes where it serialises wgmma products (C7510-C7520)
-        serial = sorted({r.split("(", 1)[1].split(")", 1)[0] for r in report
-                         if "(C75" in r})
-        print(f"  {source} ptxas serialisation notes: {serial or 'none'}")
+        # ptxas's notes where it serialises wgmma products (C7510-C7520),
+        # per instantiation (the template arguments in the mangled name)
+        serial = serialisation_notes("\n".join(report))
+        print(f"  {source} ptxas serialisation notes: "
+              f"{json.dumps(serial) if serial else 'none'}")
         if route in ("tensor_core_wide", *WGMMA_ROUTES):
             check(spills and all("0 bytes spill stores, 0 bytes spill loads"
                                  in r for r in spills),
@@ -1463,8 +1955,13 @@ def main() -> int:
         if route == "tensor_core_wgmma_wide":
             check(not serial, f"{source}: ptxas serialises its products "
                   f"({serial})")
+        if route in ("tensor_core_wgmma", "tensor_core_wgmma_short"):
+            d64 = {k: v for k, v in serial.items() if k.startswith("<64")}
+            check(not d64, f"{source}: ptxas serialises the D = 64 "
+                  f"products ({d64})")
     check(_native.deflate_fixed() is not None,
           "native deflate (csrc/codecs.cc) did not build")
+    wall_mark("1 setup")
 
     # -- 2. kernels: every route -----------------------------------------
     expected = expected_launches(torch, flash)
@@ -1504,8 +2001,11 @@ def main() -> int:
                       f"{f['host_ms']:.3f} ms (median), "
                       f"{f['host_mean_ms']:.3f} ms (mean)", flush=True)
 
+    wall_mark("2 kernels")
+
     # -- 3. small reference -----------------------------------------------
     phase_small_reference(torch)
+    wall_mark("3 small reference")
 
     # -- 4. main path -----------------------------------------------------
     template = load_template("anythingv3")
@@ -1541,6 +2041,7 @@ def main() -> int:
     check(all(bool(f) and bool(c) for f, c in flags) and
           len(flags) == n_chunks, "non-finite or constant images")
     print("main: CIDs " + " ".join(cids))
+    wall_mark("4 main path")
     del model, flags
     gc.collect()
     torch.cuda.empty_cache()
@@ -1571,12 +2072,14 @@ def main() -> int:
 
     # -- 5b. buckets --------------------------------------------------------
     phase_buckets(torch, flash, fresh, template, hydrate_input, taskid2seed)
+    wall_mark("5 determinism and buckets")
     del fresh
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- 6. node ------------------------------------------------------------
     node = phase_node(torch, flash, expected, todo, wall)
+    wall_mark("6 node")
 
     # -- 7. node-run ---------------------------------------------------------
     node_run_launches = phase_node_run(
@@ -1584,6 +2087,7 @@ def main() -> int:
         node["golden_source"],
         {"phase 4 direct": len(items) / wall * 3600,
          "phase 6 LocalChain": node["sol_h"]})
+    wall_mark("7 node-run")
     node_launches = node["launches"]
     del node
     gc.collect()
@@ -1591,12 +2095,20 @@ def main() -> int:
 
     # -- 8. kandinsky2 -------------------------------------------------------
     k2 = phase_kandinsky2(torch, flash)
+    wall_mark("8 kandinsky2")
+
+    # -- 9. text-to-video ------------------------------------------------------
+    video = phase_video(torch, flash)
+    wall_mark("9 text-to-video")
 
     entries = kernel_entries(flash, buckets, {
         "launches": launches, "launches_node": node_launches,
         "launches_node_run": node_run_launches,
         "launches_kandinsky2": k2["launches"],
-        "launches_kandinsky2_node": k2["launches_node"]})
+        "launches_kandinsky2_node": k2["launches_node"],
+        "launches_video": video["launches"],
+        "launches_video_node": video["launches_node"]})
+    print("phase wall seconds: " + json.dumps(walls), flush=True)
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -161,7 +161,7 @@ def test_wgmma_route_is_batch_position_invariant(cuda, b, h, sq, skv, d):
         flash.flash_attention(q, k, v, kernel=wgmma)[perm])
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
 def test_wgmma_route_takes_the_models_strided_views(cuda, d):
     """Self-attention as the UNet hands it over: [B, S, H*D] viewed as
     [B, H, S, D]; the TMA maps read those strides."""
@@ -176,8 +176,8 @@ def test_wgmma_route_takes_the_models_strided_views(cuda, d):
 
 
 @pytest.mark.parametrize("route,cases", [
-    ("tensor_core_wgmma", ((128, 128, 64), (64, 77, 48), (64, 64, 512))),
-    ("tensor_core_wgmma_short", ((64, 129, 40), (64, 77, 64), (64, 77, 48)))])
+    ("tensor_core_wgmma", ((128, 128, 96), (64, 77, 48), (64, 64, 512))),
+    ("tensor_core_wgmma_short", ((64, 129, 40), (64, 77, 96), (64, 77, 48)))])
 def test_wgmma_route_refuses_what_the_rule_sends_elsewhere(cuda, route,
                                                            cases):
     before = flash.flash_attention.launches_by_route[route]

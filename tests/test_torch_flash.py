@@ -49,11 +49,11 @@ def test_plain_matches_pallas_interpret_and_reference(b, h, sq, skv, d):
         rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("d", [40, 80, 160, 512])
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
 @pytest.mark.parametrize("skv", [48, 77])
 def test_plain_main_path_head_dims(d, skv):
-    """The main path's head dims (UNet 40/80/160, VAE 512), self- and
-    cross-shaped, at a tiny length."""
+    """The main paths' head dims (UNet 40/80/160, UNet3D 64, VAE 512),
+    self- and cross-shaped, at a tiny length."""
     q, k, v = _qkv((2, 1, 48, d), (2, 1, skv, d), seed=d + skv)
     got, jargs = _both(q, k, v)
     np.testing.assert_allclose(

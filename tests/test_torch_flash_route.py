@@ -156,10 +156,10 @@ def test_640_bucket_ragged_shapes():
 
 
 @pytest.mark.parametrize("case", [
-    "ok", "d48", "d160", "sq_ragged", "skv_77", "float32", "s_stride",
+    "ok", "d48", "d64", "d160", "sq_ragged", "skv_77", "float32", "s_stride",
     "pointer"])
 def test_rule_for_the_wgmma_route(case):
-    """bf16, D in {40, 80, 160} and the tensor-core stride and alignment
+    """bf16, D in {40, 64, 80, 160} and the tensor-core stride and alignment
     conditions, at any lengths; up to 128 keys the short wgmma route
     comes first. Another head dim goes to mma.sync, and what fails the
     last two to the CUDA cores; the mma.sync route can still be forced
@@ -183,6 +183,7 @@ def test_rule_for_the_wgmma_route(case):
     wgmma = "tensor_core_wgmma"
     want = {"ok": [wgmma, "tensor_core", "cuda_core"],
             "d48": ["tensor_core", "cuda_core"],
+            "d64": [wgmma, "tensor_core", "cuda_core"],
             "d160": [wgmma, "tensor_core", "cuda_core"],
             "sq_ragged": [wgmma, "tensor_core", "cuda_core"],
             "skv_77": ["tensor_core_wgmma_short", wgmma, "tensor_core",
@@ -195,7 +196,7 @@ def test_rule_for_the_wgmma_route(case):
 
 
 @pytest.mark.parametrize("tokens", [16, 200])
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
 def test_models_strided_views_take_the_tensor_cores(monkeypatch, d, tokens):
     """The UNet's Attention hands [B, S, H, D] views transposed to
     [B, H, S, D]: self- and cross-attention both pass the rule, the
@@ -384,7 +385,7 @@ def test_scale_one_percent_high_breaks_the_bound(d, skv):
     assert not _within(out, q, k, v, "tensor_core")
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 64, 80])
 @pytest.mark.parametrize("skv", [128, 384])
 def test_wgmma_arithmetic_lies_within_its_bound(d, skv):
     """The wgmma kernel's arithmetic is the mma.sync kernel's over
@@ -421,7 +422,7 @@ def _short_tile(skv):
     return next(n for n in (16, 32, 64, 80, 128) if skv <= n)
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
 @pytest.mark.parametrize("skv", [4, 16, 64, 77, 100, 128])
 def test_short_wgmma_arithmetic_lies_within_its_bound(d, skv):
     """The short wgmma kernel's arithmetic: one key tile of N = S_kv

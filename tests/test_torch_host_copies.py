@@ -1,5 +1,5 @@
 """The port keeps its own copies of the reference's host layers (L0,
-codecs, templates, tokenizer, diffusion tables, and the node's host
+codecs (PNG, JPEG, H.264, MP4), templates, tokenizer, diffusion tables, and the node's host
 modules: obs, chain, config, db, store, pinners, retry, scheduler, the
 JSON-RPC chain and the staged pipeline) and imports nothing of
 arbius_tpu; these tests hold each copy's output
@@ -37,6 +37,10 @@ EMPTY_DIR = "QmUNLLsPACCz1vLxQVkXqqLX5R1X345qqfHbsf67hvA3Nn"
      "arbius_tpu/templates/data/anythingv3.json"),
     ("arbius_tpu_torch/templates/data/kandinsky2.json",
      "arbius_tpu/templates/data/kandinsky2.json"),
+    ("arbius_tpu_torch/templates/data/zeroscopev2xl.json",
+     "arbius_tpu/templates/data/zeroscopev2xl.json"),
+    ("arbius_tpu_torch/templates/data/damo.json",
+     "arbius_tpu/templates/data/damo.json"),
     ("arbius_tpu_torch/schedulers/diffusion.py",
      "arbius_tpu/schedulers/diffusion.py"),
 ])
@@ -52,6 +56,7 @@ RENAMED_COPIES = [
     "chain/rlp.py", "chain/rpc_client.py", "chain/token.py",
     "chain/wallet.py",
     "quant/modes.py", "templates/engine.py",
+    "codecs/jpeg.py", "codecs/h264.py", "codecs/mp4.py",
     "node/chain_client.py", "node/costmodel.py", "node/db.py",
     "node/pinners.py", "node/pipeline.py", "node/retry.py",
     "node/rpc.py", "node/rpc_chain.py", "node/store.py",
@@ -66,9 +71,10 @@ CHANGED_TWINS = {
               "SIGTERM and an exit summary",
     "node/config.py": "own copies of RULE_NAMES and validate_axes; no "
                       "compile cache by default",
-    "node/solver.py": "the SD-1.5 and Kandinsky-2 runners only, on CUDA "
-                      "streams and events",
-    "node/factory.py": "anythingv3 and kandinsky2 only, on a torch device",
+    "node/solver.py": "the SD-1.5, Kandinsky-2 and text-to-video runners "
+                      "only, on CUDA streams and events",
+    "node/factory.py": "anythingv3, kandinsky2, zeroscopev2xl and damo "
+                       "only, on a torch device",
     "node/sched.py": "module docstring only: no project history",
 }
 

@@ -17,7 +17,9 @@ SOURCES = sorted((REPO / "arbius_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "flash_mutants.py",
     REPO / "tools" / "flash_ablate.py", REPO / "tools" / "flash_same_bits.py",
     REPO / "tools" / "flash_times.py", REPO / "tools" / "node_run_trace.py",
-    REPO / "tools" / "kandinsky2_flops.py"]
+    REPO / "tools" / "kandinsky2_flops.py",
+    REPO / "tools" / "video_flops.py",
+    REPO / "tools" / "video_conv_grouping.py"]
 
 
 def _imported(path: pathlib.Path) -> set[str]:
@@ -52,7 +54,7 @@ def test_every_module_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 69
+    assert int(out.stdout.strip()) >= 75
 
 
 def test_entry_points_default_to_cuda():
@@ -63,6 +65,10 @@ def test_entry_points_default_to_cuda():
         Kandinsky2Pipeline,
     )
     from arbius_tpu_torch.models.sd15 import SD15Config, SD15Pipeline
+    from arbius_tpu_torch.models.video import (
+        Text2VideoConfig,
+        Text2VideoPipeline,
+    )
     from arbius_tpu_torch.node import (
         MiningConfig,
         ModelConfig,
@@ -76,7 +82,13 @@ def test_entry_points_default_to_cuda():
         build_registry(MiningConfig(compile_cache_dir=None, models=(
             ModelConfig(id="0x" + "00" * 32, template="kandinsky2",
                         tiny=True),)))
+    for template in ("damo", "zeroscopev2xl"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_registry(MiningConfig(compile_cache_dir=None, models=(
+                ModelConfig(id="0x" + "00" * 32, template=template,
+                            tiny=True),)))
     for pipeline, config in ((SD15Pipeline, SD15Config),
-                             (Kandinsky2Pipeline, Kandinsky2Config)):
+                             (Kandinsky2Pipeline, Kandinsky2Config),
+                             (Text2VideoPipeline, Text2VideoConfig)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pipeline(config.tiny())

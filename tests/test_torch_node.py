@@ -724,6 +724,9 @@ def test_boot_self_test_with_recorded_golden(registry, corrupt):
     ({"precision": {"default": "int8"}}, 6),
     ({"precision": {"templates": {"anythingv3": "fp8"}}}, 6),
     ({"models": [{"id": "0x" + "cd" * 32, "template": "textgen"}]}, 8),
+    ({"mesh": {"sp": 2}, "models": [{"id": "0x" + "ce" * 32,
+                                     "template": "damo",
+                                     "sp_strategy": "ulysses"}]}, 11),
 ], ids=lambda v: json.dumps(v) if isinstance(v, dict) else str(v))
 def test_unported_settings_refused_at_boot(overrides, item):
     from arbius_tpu_torch.node import BootError, load_config
@@ -837,11 +840,15 @@ def test_registry_refuses_kandinsky2_unported_settings(overrides, item):
         P.node.build_registry(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("template,item", [
-    ("zeroscopev2xl", 9), ("damo", 9), ("robust_video_matting", 10)])
-def test_registry_refuses_unported_templates(template, item):
+@pytest.mark.parametrize("template,mesh,item", [
+    ("zeroscopev2xl", {"sp": 2}, 11), ("damo", {"dp": 2, "sp": 2}, 11),
+    ("robust_video_matting", None, 10)])
+def test_registry_refuses_unported_templates(template, mesh, item):
+    """robust_video_matting waits for its slice; the video templates
+    build on one device only (their frame-axis sequence parallelism,
+    ring or ulysses, waits for multi-device)."""
     P = _pkg("arbius_tpu_torch")
-    cfg = _config(P, models=(P.node.ModelConfig(
+    cfg = _config(P, mesh=mesh, models=(P.node.ModelConfig(
         id="0x" + "00" * 32, template=template, tiny=True),))
     with pytest.raises(P.node.ConfigError, match=f"item {item}\\)"):
         P.node.build_registry(cfg, device="cpu")

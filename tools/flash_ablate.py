@@ -136,11 +136,11 @@ ABLATIONS = {
     "tensor_core_wgmma": WGMMA_ABLATIONS,
     "tensor_core_wgmma_short": {
         "intact": [],
-        # two consumer warpgroups at D = 40 and 80 too, as at D = 160
+        # two consumer warpgroups at D = 40, 64 and 80 too, as at D = 160
         "two_consumers": [
             ("kConsumers = D == 160 ? 2 : 3;", "kConsumers = 2;"),
             ("kProducerRegs = D == 40 ? 24 : 40;", "kProducerRegs = 40;"),
-            ("kConsumerRegs = D == 40 ? 160 : D == 80 ? 152 : 232;",
+            ("kConsumerRegs = D == 40 ? 160 : D == 160 ? 232 : 152;",
              "kConsumerRegs = 232;")],
         # one query-tile stage per consumer, not two or three
         "one_stage_each": [("constexpr int kMaxStages = 8;",
