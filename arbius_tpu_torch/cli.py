@@ -98,18 +98,37 @@ def cmd_record_golden(args) -> int:
 
     raw = json.loads(args.input) if args.input else {
         "prompt": "arbius test cat",
-        # kandinsky2's and damo's templates have no negative prompt,
-        # zeroscopev2xl's hydrates its default
+        # only anythingv3's template takes a negative prompt without a
+        # default; zeroscopev2xl's hydrates its own
         **({"negative_prompt": ""} if args.template == "anythingv3"
            else {})}
+    resolve_file = None
+    if args.template == "robust_video_matting" and not args.probe_video:
+        raise SystemExit(
+            "robust_video_matting's input is a video FILE: pass "
+            "--probe-video TxHxW to pin the deterministic probe clip as "
+            "input_video (codecs/probe.py)")
+    if args.probe_video:
+        # file-input templates: the probe clip, pinned by its CID and
+        # resolved in memory, so the golden reproduces on any platform
+        from arbius_tpu_torch.node.factory import probe_golden_input
+
+        resolve_file, probe_raw = probe_golden_input(args.probe_video)
+        raw.pop("prompt", None)
+        raw.pop("negative_prompt", None)
+        raw.update(probe_raw)
     mid = "0x" + "00" * 32
     mc = ModelConfig(id=mid, template=args.template, tiny=args.tiny,
                      weights_dtype=args.weights_dtype)
-    model = build_registry(MiningConfig(models=(mc,)),
-                           device=args.device).get(mid)
+    model = build_registry(MiningConfig(models=(mc,)), device=args.device,
+                           resolve_file=resolve_file).get(mid)
     rec = record_golden(model, raw, args.seed,
                         canonical_batch=args.canonical_batch,
                         device=args.device)
+    if args.probe_video:
+        # the recipe rides in the vector: a node whose golden carries
+        # probe_video makes the clip at boot (factory.probe_resolver)
+        rec["golden"]["probe_video"] = args.probe_video
     print(json.dumps({"template": args.template, "tiny": args.tiny,
                       "weights_dtype": args.weights_dtype,
                       "canonical_batch": args.canonical_batch, **rec},
@@ -419,8 +438,9 @@ def cmd_node_run(args) -> int:
         from arbius_tpu_torch.node.store import ContentStore
 
         store = ContentStore(cfg.store_dir)
-    node = MinerNode(chain, cfg, build_registry(cfg, device=device),
-                     store=store)
+    registry = build_registry(
+        cfg, device=device, resolve_file=store.get_file if store else None)
+    node = MinerNode(chain, cfg, registry, store=store)
     node.boot(skip_self_test=args.skip_self_test)
     boot_launches = dict(flash.flash_attention.launches_by_route)
     flash.reset_launches()
@@ -491,10 +511,14 @@ def main(argv=None) -> int:
         help="compute a model's boot self-test golden CID on this build")
     sp.add_argument("--template", default="anythingv3",
                     choices=["anythingv3", "kandinsky2", "zeroscopev2xl",
-                             "damo"])
+                             "damo", "textgen", "robust_video_matting"])
     sp.add_argument("--input", help='hydratable input JSON (default: '
                                     '{"prompt": "arbius test cat", ...})')
     sp.add_argument("--seed", type=int, default=1337)  # index.ts:988
+    sp.add_argument("--probe-video", dest="probe_video", metavar="TxHxW",
+                    help="file-input templates (robust_video_matting): "
+                         "pin the deterministic probe clip of this shape "
+                         "as input_video")
     sp.add_argument("--tiny", action="store_true")
     sp.add_argument("--weights-dtype", dest="weights_dtype",
                     default="float32", choices=["float32", "bfloat16"],

@@ -5,7 +5,10 @@ native deflate core, as csrc/codecs.cc), `codecs/jpeg.py`,
 `codecs/h264.py` and `codecs/mp4.py`: the solution CID is computed over
 the encoded bytes, so they are pinned by specification and every miner
 produces the same bytes. The video templates' out-1.mp4 is
-`encode_mp4_h264`'s all-intra H.264 in an MP4 container.
+`encode_mp4_h264`'s all-intra H.264 in an MP4 container. The input side
+of the matting template (robust_video_matting's input_video) is the
+copies of `codecs/mp4_demux.py` (MJPEG through Pillow, or avc1),
+`codecs/h264_decode.py` and `codecs/probe.py` (the probe golden's clip).
 """
 from arbius_tpu_torch.codecs.jpeg import encode_jpeg
 from arbius_tpu_torch.codecs.mp4 import (

@@ -1,22 +1,22 @@
 """Weights for the port's modules: from a JAX parameter tree, or a seeded
-init of the same distributions. Shared by the SD-1.5, Kandinsky-2 and
-text-to-video families.
+init of the same distributions. Shared by every family.
 
 `params_from_jax` takes the reference's `init_params` tree as nested dicts
 of numpy arrays (the caller converts; this module never imports JAX) and
 returns a `state_dict` for the family's module bundle (`SD15Models`,
-`Kandinsky2Models`, `Text2VideoModels`). The port's modules carry the
-flax names, so a key is the flax path joined with '.', and only the
-leaves change:
+`Kandinsky2Models`, `Text2VideoModels`, `TextGenModel`, RVM's
+`MattingStep`). The port's modules carry the flax names, so a key is the
+flax path joined with '.', and only the leaves change:
 
   - Dense kernel [in, out]          -> Linear weight [out, in]
-  - Conv kernel [kH, kW, I, O]      -> Conv2d weight [O, I, kH, kW]
+  - Conv kernel [kH, kW, I/g, O]    -> Conv2d weight [O, I/g, kH, kW]
+    (a depthwise [kH, kW, 1, C] -> [C, 1, kH, kW])
   - frame-axis Conv kernel [3, I, O] (`FRAME_CONVS`) -> Conv3d weight
     [O, I, 3, 1, 1]
   - DenseGeneral q/k/v [W, H, D]    -> Linear weight [H*D, W]; bias [H, D] -> [H*D]
   - DenseGeneral out [H, D, W]      -> Linear weight [W, H*D]
-  - GroupNorm/LayerNorm `scale`, Embed `embedding` -> `weight`
-  - any other parameter (`pos_embed`, the prior's rank-3 `pos_embed` and
+  - GroupNorm/LayerNorm/RVM's BNInf `scale`, Embed `embedding` -> `weight`
+  - any other parameter (`pos_embed`, BNInf's `mean` and `var`, the prior's rank-3 `pos_embed` and
     `prd_embed`, the top-level `prior_stats`) keeps its name and shape.
 
 `init_params` draws flax's default distributions for the same keys from

@@ -1,0 +1,21 @@
+"""textgen: deterministic LLM text generation (the reference's
+docs/text-serving.md), in PyTorch, single-device. Precision modes wait for
+ROADMAP.md queue 1 item 6 and the mesh for item 11."""
+from arbius_tpu_torch.models.textgen.model import TextGenConfig, TextGenModel
+from arbius_tpu_torch.models.textgen.pipeline import (
+    BOS_ID,
+    EOS_ID,
+    SAMPLERS,
+    TextGenPipeline,
+    tokens_to_bytes,
+)
+
+__all__ = [
+    "BOS_ID",
+    "EOS_ID",
+    "SAMPLERS",
+    "TextGenConfig",
+    "TextGenModel",
+    "TextGenPipeline",
+    "tokens_to_bytes",
+]

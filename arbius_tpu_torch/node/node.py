@@ -25,8 +25,8 @@ device. What reaches JAX or an unported module changes:
   - `MinerNode` refuses, with `BootError` naming the ROADMAP item that
     ports it, every setting that needs a module the port lacks: a mesh
     of more than one device, `aot_cache.enabled`, `compile_cache_dir`,
-    `perfscope.enabled`, `alerts.enabled`, `fleet.enabled`, a textgen
-    model and a precision mode other than bf16 (`_refuse_unported`). So
+    `perfscope.enabled`, `alerts.enabled`, `fleet.enabled` and a
+    precision mode other than bf16 (`_refuse_unported`). So
     the mesh build and contract audit, the AOT cache, the perfscope
     cards and the alert engine are gone from the body, with the mesh
     intake gate; no bucket is disk-warm (`bucket_disk_warm`,
@@ -168,10 +168,6 @@ def _refuse_unported(config: MiningConfig) -> None:
         if on:
             raise BootError(f"{name}: not ported yet (ROADMAP queue 1 "
                             f"item {item})")
-    for m in config.models:
-        if m.template == "textgen":
-            raise BootError(f"model {m.id}: the textgen family is not "
-                            "ported yet (ROADMAP queue 1 item 8)")
     modes = {config.precision.default, *config.precision.templates.values()}
     if modes != {"bf16"}:
         raise BootError(f"precision modes {sorted(modes)}: the port serves "

@@ -1,12 +1,13 @@
 """Model registry + the deterministic solve path (inference -> bytes ->
 CID), for the port's runners.
 
-Twin of the image and video parts of arbius_tpu/node/solver.py:
-`RegisteredModel`, `ModelRegistry`, `bucket_key`/`bucket_mode`,
-`chunk_items`, `solve_files_batch` (canonical-batch padding and the
-one-deep dispatch/finalize overlap), `solve_cid`/`solve_cid_batch` (with
-`evilmode`), `SD15Runner`, `Kandinsky2Runner` and `Text2VideoRunner`,
-under the reference's obs spans.
+Twin of arbius_tpu/node/solver.py: `RegisteredModel`, `ModelRegistry`,
+`bucket_key`/`bucket_mode`, `chunk_items`, `solve_files_batch`
+(canonical-batch padding and the one-deep dispatch/finalize overlap),
+`solve_cid`/`solve_cid_batch` (with `evilmode`), `SD15Runner`,
+`Kandinsky2Runner`, `Text2VideoRunner`, `RVMRunner`, `count_decode_stall`
+and `TextGenRunner`, under the reference's obs spans. The runners hold
+their pipelines' weights (the reference passes `params` beside them).
 
 Runners must be deterministic in (input, seed): the CID is what gets
 keccak'd into the on-chain commitment. cuBLAS and cuDNN choose kernels by
@@ -23,7 +24,7 @@ import torch
 
 from arbius_tpu_torch.codecs import encode_mp4_h264, encode_png
 from arbius_tpu_torch.l0.cid import cid_hex, cid_of_solution_files
-from arbius_tpu_torch.obs import span
+from arbius_tpu_torch.obs import current_obs, span
 from arbius_tpu_torch.templates.engine import Template
 
 Runner = Callable[[dict, int], dict]
@@ -352,3 +353,129 @@ class Text2VideoRunner:
         return self.pipeline.bucket_tag(
             batch, int(g("num_frames")), int(g("height")), int(g("width")),
             int(g("num_inference_steps")), "DDIM")
+
+
+class RVMRunner:
+    """robust_video_matting-template runner: ConvGRU matting stream ->
+    deterministic H.264 MP4.
+
+    The template's `input_video` is a file reference; `resolve_file`
+    (cid -> bytes) is injected: a content store's `get_file`, or the
+    probe resolver of a probe golden. The input is MJPEG or avc1, found
+    by its sample entry; the output is all-intra H.264. Seed-independent,
+    as the reference model is."""
+
+    def __init__(self, pipeline, resolve_file, out_name: str = "out-1.mp4",
+                 fps: int = 8):
+        self.pipeline = pipeline
+        self.resolve_file = resolve_file
+        self.out_name = out_name
+        self.fps = fps
+
+    def __call__(self, hydrated: dict, seed: int) -> dict:
+        from arbius_tpu_torch.codecs.mp4_demux import decode_video_mp4
+
+        video = decode_video_mp4(self.resolve_file(hydrated["input_video"]))
+        # the template's output_type enum has "" as its default, which the
+        # published model treats as green-screen
+        out = self.pipeline.matte(
+            video, output_type=hydrated.get("output_type") or "green-screen")
+        with span("solve.encode", n=1, codec="h264"):
+            return {self.out_name: encode_mp4_h264(out, fps=self.fps)}
+
+
+def count_decode_stall(n: int = 1) -> None:
+    """Bump `arbius_decode_stalls_total`: a text solve whose decode gave
+    zero output bytes (an immediate eos, or nothing representable).
+    Observation only: the empty artifact is still the committed bytes."""
+    obs = current_obs()
+    if obs is not None:
+        obs.registry.counter(
+            "arbius_decode_stalls_total",
+            "text solves whose decode produced zero output bytes",
+        ).inc(n)
+
+
+class TextGenRunner:
+    """textgen-template runner: decoder-only LM -> deterministic UTF-8.
+
+    Template variables (templates/data/textgen.json): prompt,
+    max_new_tokens, sampler (enum); output out-1.txt. The sequence
+    buckets ride the hydrated input as `_prompt_bucket`/`_decode_bucket`,
+    stamped by `prepare_hydrated` at intake, so the node's bucket key,
+    cost tags and packer all see them."""
+
+    def __init__(self, pipeline, out_name: str = "out-1.txt"):
+        self.pipeline = pipeline
+        self.out_name = out_name
+
+    def prepare_hydrated(self, hydrated: dict) -> dict:
+        """Stamp the sequence-bucket fields onto the hydrated input (the
+        node calls this right after hydration): a pure function of the
+        input and the fleet-wide bucket edges."""
+        h = dict(hydrated)
+        h["_prompt_bucket"] = self.pipeline.prompt_bucket_for(
+            h.get("prompt", ""))
+        h["_decode_bucket"] = self.pipeline.decode_bucket_for(
+            int(h.get("max_new_tokens") or 16))
+        return h
+
+    def _buckets_of(self, hydrated: dict) -> tuple[int, int]:
+        pb = hydrated.get("_prompt_bucket")
+        db = hydrated.get("_decode_bucket")
+        if pb is None:
+            pb = self.pipeline.prompt_bucket_for(hydrated.get("prompt", ""))
+        if db is None:
+            db = self.pipeline.decode_bucket_for(
+                int(hydrated.get("max_new_tokens") or 16))
+        return int(pb), int(db)
+
+    def __call__(self, hydrated: dict, seed: int) -> dict:
+        return self.run_batch([(hydrated, seed)])[0]
+
+    def run_batch(self, items: list[tuple[dict, int]]) -> list[dict]:
+        return self.finalize(self.dispatch(items), len(items))
+
+    def dispatch(self, items: list[tuple[dict, int]]):
+        """Queue the bucket on the card and return without waiting for it
+        (`_to_host`). Each item's budget rides along to `finalize`: the
+        program runs the whole decode bucket and the host truncates,
+        which is byte-sound because generation is prefix-stable."""
+        first = items[0][0]
+        pb, db = self._buckets_of(first)
+        tokens = self.pipeline.generate(
+            prompts=[str(h.get("prompt", "")) for h, _ in items],
+            seeds=[s for _, s in items],
+            prompt_bucket=pb, decode_bucket=db,
+            sampler=first.get("sampler") or "greedy",
+            as_device=True,
+        )
+        return _to_host(tokens), [int(h.get("max_new_tokens") or 16)
+                                  for h, _ in items]
+
+    def finalize(self, dispatched, n_real: int) -> list[dict]:
+        from arbius_tpu_torch.models.textgen import tokens_to_bytes
+
+        (tokens, done), budgets = dispatched
+        if done is not None:
+            done.synchronize()
+        with span("solve.encode", n=n_real, codec="text"):
+            tokens = tokens.numpy()
+            out = []
+            stalls = 0
+            for i in range(n_real):
+                text = tokens_to_bytes(tokens[i], budgets[i],
+                                       self.pipeline.EOS_ID)
+                if not text:
+                    stalls += 1
+                out.append({self.out_name: text})
+            if stalls:
+                count_decode_stall(stalls)
+            return out
+
+    def cache_tag(self, hydrated: dict, batch: int) -> str:
+        """The bucket tag a dispatch of this task would use; bucket policy
+        identical to `dispatch`."""
+        pb, db = self._buckets_of(hydrated)
+        return self.pipeline.bucket_tag(
+            batch, pb, db, hydrated.get("sampler") or "greedy")

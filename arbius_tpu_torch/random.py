@@ -15,6 +15,14 @@ little uint32 arithmetic. A key is an int64 tensor ``[..., 2]``; leading
 dimensions batch independent keys (the reference's `vmap` over tasks).
 Raw bits, `fold_in` and `split` are bit-exact. `normal` goes through
 `torch.erfinv`, which may differ from XLA's `erf_inv` by a few ULPs.
+`categorical` is jax's Gumbel-max ("low" mode): its noise goes through
+`torch.log`, a few ULPs from XLA's `log`, so hold its ids, not its noise,
+to the reference.
+
+Nothing here copies from the host to the device: an int `data` or a
+seed becomes a device tensor by a fill kernel, and the bounds of
+`uniform` enter as scalars. So every call can be captured in a CUDA
+graph (the textgen bucket program).
 """
 from __future__ import annotations
 
@@ -45,18 +53,26 @@ def threefry2x32(k1, k2, x1, x2) -> tuple[torch.Tensor, torch.Tensor]:
     return x[0], x[1]
 
 
+def _int64(data, device) -> torch.Tensor:
+    """`data` as an int64 tensor on `device`: a Python int by a fill
+    kernel (no host-to-device copy), a tensor as it is or cast."""
+    if isinstance(data, int):
+        return torch.full((), data, dtype=torch.int64, device=device)
+    return torch.as_tensor(data, dtype=torch.int64, device=device)
+
+
 def prng_key(seed, device: str | torch.device = "cuda") -> torch.Tensor:
     """`jax.random.PRNGKey(seed)`: the key is the seed's 64 bits as
     (hi word, lo word). The bucket passes 32-bit low words, so hi is 0.
     `seed` may be an int or an integer tensor of seeds (one key each)."""
-    s = torch.as_tensor(seed, dtype=torch.int64, device=device)
+    s = _int64(seed, device)
     return torch.stack([(s >> 32) & _MASK, s & _MASK], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """`jax.random.fold_in(key, data)` for 32-bit `data` (int or tensor
     broadcasting against the key's leading dimensions)."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    d = _int64(data, key.device) & _MASK
     y1, y2 = threefry2x32(key[..., 0], key[..., 1],
                           torch.zeros_like(d), d)
     return torch.stack([y1, y2], dim=-1)
@@ -87,13 +103,14 @@ def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """`jax.random.uniform` in float32: 23 random mantissa bits under an
-    exponent of one give [1, 2), shifted and scaled to [minval, maxval)."""
+    exponent of one give [1, 2), shifted and scaled to [minval, maxval).
+    The bounds are float32 values (the callers' are), so their difference
+    taken in Python's float64 rounds to float32's difference: the scalars
+    give the bits that float32 tensors would."""
     bits = random_bits(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return (floats * (maxval - minval) + minval).clamp_min(minval)
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -105,3 +122,21 @@ def normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     (-1, 1)."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
     return torch.erfinv(u) * _SQRT2
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """`jax.random.gumbel` in float32, mode "low" (jax 0.9.0's default):
+    -log(-log(u)), u uniform on [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """`jax.random.categorical(key, logits)` over the last axis, with
+    replacement: argmax(logits + gumbel(key, logits.shape)), the first
+    index among equal maxima. `key` ``[..., 2]`` batches the rows of
+    `logits` ``[..., K]`` (the reference's vmap over tasks)."""
+    g = gumbel(key, (logits.shape[-1],))
+    return torch.argmax(g + logits.float(), dim=-1)

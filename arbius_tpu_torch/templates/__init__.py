@@ -1,6 +1,6 @@
 """Template/schema engine — a copy of the reference's
-`arbius_tpu/templates/engine.py`, shipping the anythingv3, kandinsky2,
-zeroscopev2xl and damo templates."""
+`arbius_tpu/templates/engine.py`, shipping all six of the reference's
+templates."""
 from arbius_tpu_torch.templates.engine import (
     FilterResult,
     HydrationError,

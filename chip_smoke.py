@@ -122,9 +122,39 @@ its own lines with timings:
      device seconds and peak memory per stage (text, denoise loop, VAE)
      and the host's H.264 + MP4 + CID seconds.
 
+  10. textgen at full width (TextGenConfig(), 174,336 seeded parameters,
+     bf16): the tiny float32 config on the card (CUDA graphs) and the CPU
+     with identical token ids; each bucket of MiningConfig's default
+     edges (prompt 32/64 x decode 16/32 x greedy/top-k, canonical batch
+     4): the captured graph against the eager loop (identical ids, also
+     after a replay with other prompts), p50 per chunk and tokens/s of
+     both, device ms by CUDA events, launches per chunk and idle share
+     from a traced chunk of each; prefix stability between decode 16 and
+     32; six template tasks over four buckets solved one per chunk and
+     by a fresh registry in other groupings with identical CIDs; a
+     MinerNode on LocalChain boots with
+     arbius_tpu_torch/goldens/textgen.h100.bfloat16.json where the build
+     matches (re-recorded where it differs), mines the six and claims
+     them, each on-chain CID the direct solve's.
+  11. robust_video_matting at full width (RVMConfig(), 3,773,721 seeded
+     parameters, bf16): the tiny float32 config on the card and the CPU
+     (uint8 within one level, direct and refine paths); an avc1 clip of
+     probe_clip(48, 1088, 1920) (a 1080p stream at the nearest size
+     matte accepts, multiples of 16) through shrink and refine (base
+     288x512) and a 16-frame 512x512 clip on the direct path: frames/s,
+     device ms per frame, kernels per frame, idle share, peak GiB, the
+     host's demux + decode and encode seconds, and the runner's bytes
+     identical on a fresh model; a node with no content store boots
+     with arbius_tpu_torch/goldens/robust_video_matting.h100.bfloat16
+     .json (probe clip 8x128x128, MJPEG; re-recorded where the build
+     differs), and a node with a store mines three tasks whose inputs
+     are pinned to it (avc1 and MJPEG, all three output types, one
+     through refine), each on-chain CID the direct solve's. Phases 10
+     and 11 launch no flash kernel.
+
 Each phase prints its wall seconds. Any failed check raises and the exit
 code is not 0. The last lines are the card, a `kernels` JSON line (with
-each route's launches in phases 4, 6, 7, 8 and 9) and
+each route's launches in phases 4, 6, 7, 8, 9, 10 and 11) and
 `{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, where CUDA is not available.
 """
@@ -557,7 +587,8 @@ def kernel_entries(flash, buckets: dict, launches: dict) -> list[dict]:
     """The `kernels` line: per route, phase 2's summaries (`buckets`, as
     `phase_kernels` returns them; times per 512x512 batch, and per batch
     of each other bucket timed) beside `launches`, each a name mapped to
-    the route's launch counts of one run (phases 4, 6, 7, 8 and 9)."""
+    the route's launch counts of one run (phases 4, 6, 7, 8, 9, 10 and
+    11; the last two launch none)."""
     tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
     names = {"cuda_core": "flash_attention",
              "tensor_core": "flash_attention_tc",
@@ -1901,6 +1932,582 @@ def phase_video(torch, flash) -> dict:
     return {"launches": launches, "launches_node": node_launches}
 
 
+# phase 10, textgen: the MiningConfig default sequence edges (prompt 32/64
+# x decode 16/32) for both samplers at the canonical batch
+TG_PROMPT_EDGES, TG_DECODE_EDGES = (32, 64), (16, 32)
+TG_SAMPLERS = ("greedy", "top_k")
+TG_REPS = 5             # timed chunks per bucket and path
+TG_GOLDEN_FILE = "arbius_tpu_torch/goldens/textgen.h100.bfloat16.json"
+TG_GOLDEN_INPUT = {"prompt": "arbius test cat"}
+TG_PROMPTS = ["once upon a time", "the lighthouse keeper said",
+              "a list of rivers:", "def main():"]
+
+
+def textgen_inputs() -> list[dict]:
+    """Phase 10's six template inputs, over four buckets: (prompt edge,
+    decode edge, sampler) = (32, 16, greedy) x 2, (32, 32, top_k) x 2,
+    (64, 32, greedy), (64, 16, top_k)."""
+    long = "a lighthouse on a cliff at dusk, waves below"   # 45 bytes
+    return [{"prompt": "once upon a time"},
+            {"prompt": "the sea", "max_new_tokens": 8},
+            {"prompt": "a list of rivers:", "max_new_tokens": 32,
+             "sampler": "top_k"},
+            {"prompt": "tell me a story", "max_new_tokens": 20,
+             "sampler": "top_k"},
+            {"prompt": long, "max_new_tokens": 30},
+            {"prompt": long + "!", "max_new_tokens": 12,
+             "sampler": "top_k"}]
+
+
+def phase_textgen_small_reference(torch) -> None:
+    """The tiny float32 textgen config on the card (its captured graphs)
+    and on the CPU from the same weights: identical token ids."""
+    import dataclasses
+
+    from arbius_tpu_torch.models.textgen import TextGenConfig, TextGenPipeline
+
+    cfg = dataclasses.replace(TextGenConfig.tiny(), dtype="float32")
+    pipes = [TextGenPipeline(cfg, device=dev) for dev in ("cpu", "cuda")]
+    params = pipes[0].init_params(seed=0)
+    for pipe in pipes:
+        pipe.load_params(params)
+    seeds = [1, 2**40 + 3, 7, 0x1FFFFFFFFFFFEF]
+    for sampler in TG_SAMPLERS:
+        for p in TG_PROMPT_EDGES:
+            got = [pipe.generate(TG_PROMPTS, seeds, prompt_bucket=p,
+                                 decode_bucket=32, sampler=sampler)
+                   for pipe in pipes]
+            check((got[0] == got[1]).all(), f"textgen small reference: "
+                  f"{sampler} at prompt edge {p}: card ids {got[1]} != "
+                  f"CPU ids {got[0]}")
+    print("textgen small reference: tiny f32, card (CUDA graphs) vs CPU: "
+          "identical token ids, both samplers, prompt edges 32 and 64, "
+          "decode edge 32", flush=True)
+
+
+def phase_textgen(torch, flash) -> dict:
+    """Phase 10: textgen at full width (TextGenConfig(), bf16 weights).
+    The small reference; then each of the eight buckets (prompt 32/64 x
+    decode 16/32 x greedy/top-k, canonical batch 4): the captured graph
+    against the eager loop (identical ids, and again after a replay with
+    other prompts), chunk latency and tokens/s for both, device ms by
+    CUDA events, launches per chunk and the idle share from a traced
+    chunk of each; prefix stability between decode 16 and 32; six
+    template tasks over four buckets solved one by one and by a fresh
+    registry in other groupings (identical CIDs); a MinerNode on
+    LocalChain boots with the committed golden (re-recorded where the
+    build differs), mines the six and claims them, each on-chain CID the
+    direct solve's. No flash kernel runs. Returns the flash launches of
+    the main path and of the node's mining."""
+    import tempfile
+
+    from arbius_tpu_torch.chain import WAD
+    from arbius_tpu_torch.cli import build_info, record_golden
+    from arbius_tpu_torch.l0 import taskid2seed
+    from arbius_tpu_torch.node import (
+        LocalChain,
+        MinerNode,
+        MiningConfig,
+        ModelConfig,
+        build_registry,
+        solve_cid_batch,
+    )
+    from arbius_tpu_torch.node.solver import bucket_key
+    from arbius_tpu_torch.templates import hydrate_input, load_template
+    from arbius_tpu_torch.utils import card_info
+
+    card = card_info()
+    t_phase = time.perf_counter()
+    phase_textgen_small_reference(torch)
+
+    def config(mid="0x" + "00" * 32, golden=None):
+        return MiningConfig(canonical_batch=CANONICAL_BATCH, models=(
+            ModelConfig(id=mid, template="textgen", weights_dtype="bfloat16",
+                        golden=golden),))
+
+    def build(mid="0x" + "00" * 32):
+        return build_registry(config(mid), device="cuda").get(mid)
+
+    model = build()
+    pipe = model.runner.pipeline
+    check(pipe.prompt_buckets == TG_PROMPT_EDGES and
+          pipe.decode_buckets == TG_DECODE_EDGES,
+          f"MiningConfig's textgen edges are not {TG_PROMPT_EDGES} x "
+          f"{TG_DECODE_EDGES}")
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    print(f"textgen: built TextGenConfig() ({n_params} parameters, bf16 "
+          "weights)", flush=True)
+    seeds = [11, 2**40 + 3, 977, 0x1FFFFFFFFFFFEF]
+    other = [p[::-1] for p in TG_PROMPTS]
+    flash.reset_launches()
+    rows = []
+
+    def timed(fn) -> tuple[float, float]:
+        """Host seconds to tokens on the host, and the device ms between
+        two CUDA events around the enqueue."""
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return time.perf_counter() - t0, a.elapsed_time(b)
+
+    for p in TG_PROMPT_EDGES:
+        for t in TG_DECODE_EDGES:
+            for sampler in TG_SAMPLERS:
+                kw = dict(prompt_bucket=p, decode_bucket=t, sampler=sampler)
+                t0 = time.perf_counter()
+                graph = pipe.generate(TG_PROMPTS, seeds, **kw)
+                capture_s = time.perf_counter() - t0
+                eager = pipe.generate(TG_PROMPTS, seeds, eager=True, **kw)
+                check((graph == eager).all(), f"textgen {kw}: the graph's "
+                      f"ids {graph} != the eager loop's {eager}")
+                again = pipe.generate(other, seeds[::-1], **kw)
+                check((again == pipe.generate(other, seeds[::-1], eager=True,
+                                              **kw)).all(),
+                      f"textgen {kw}: a replay with other prompts differs "
+                      "from the eager loop")
+                g = [timed(lambda: pipe.generate(TG_PROMPTS, seeds, **kw))
+                     for _ in range(TG_REPS)]
+                e = [timed(lambda: pipe.generate(TG_PROMPTS, seeds,
+                                                 eager=True, **kw))
+                     for _ in range(TG_REPS)]
+                med = {name: (statistics.median(x[0] for x in runs),
+                              statistics.median(x[1] for x in runs))
+                       for name, runs in (("graph", g), ("eager", e))}
+                rows.append((p, t, sampler, capture_s, med))
+                print(f"textgen bucket p{p} t{t} {sampler}: graph == eager "
+                      f"(and after a replay with other prompts); capture "
+                      f"{capture_s:.3f} s; p50 per chunk of "
+                      f"{CANONICAL_BATCH} graph {med['graph'][0] * 1e3:.3f} "
+                      f"ms ({CANONICAL_BATCH * t / med['graph'][0]:.1f} "
+                      f"tokens/s, device {med['graph'][1]:.3f} ms), eager "
+                      f"{med['eager'][0] * 1e3:.3f} ms "
+                      f"({CANONICAL_BATCH * t / med['eager'][0]:.1f} "
+                      f"tokens/s, device {med['eager'][1]:.3f} ms); {card}",
+                      flush=True)
+    # launches and idle share: one traced chunk of each path at the
+    # largest bucket
+    kw = dict(prompt_bucket=64, decode_bucket=32, sampler="top_k")
+    traces = {}
+    check(rows[-1][:3] == (64, 32, "top_k"), "textgen: the last bucket "
+          "timed is not p64 t32 top_k")
+    span = {name: ms for name, (_, ms) in rows[-1][4].items()}
+    for name, eager in (("graph", False), ("eager", True)):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pipe.generate(TG_PROMPTS, seeds, eager=eager, **kw)
+            torch.cuda.synchronize()
+        host_launches = sum(
+            e.count for e in prof.key_averages()
+            if e.key in ("cudaLaunchKernel", "cudaGraphLaunch",
+                         "cudaLaunchKernelExC"))
+        with tempfile.TemporaryDirectory() as work:
+            path = pathlib.Path(work) / "chunk.json"
+            prof.export_chrome_trace(str(path))
+            traces[name] = device_trace_summary(json.loads(path.read_text()))
+        traces[name]["host_launches"] = host_launches
+        idle = 1.0 - traces[name]["busy_ms"] / span[name]
+        traces[name]["idle_share_events"] = idle
+        print(f"textgen traced chunk p64 t32 top_k, {name}: "
+              f"{host_launches} launches from the host, "
+              f"{traces[name]['kernels']} kernels on the card, busy "
+              f"{traces[name]['busy_ms']:.3f} ms; against the untraced "
+              f"chunk's {span[name]:.3f} ms between CUDA events an idle "
+              f"share of {idle:.3f} (traced span "
+              f"{traces[name]['span_ms']:.3f} ms); top "
+              + json.dumps(traces[name]["top"][:4]) + f"; {card}",
+              flush=True)
+    check(traces["graph"]["kernels"] > 0 and traces["eager"]["kernels"] > 0,
+          f"textgen: no kernels traced: {traces}")
+    # prefix stability on the card
+    for sampler in TG_SAMPLERS:
+        for p in TG_PROMPT_EDGES:
+            short, long = (pipe.generate(TG_PROMPTS, seeds, prompt_bucket=p,
+                                         decode_bucket=t, sampler=sampler)
+                           for t in TG_DECODE_EDGES)
+            check((long[:, :TG_DECODE_EDGES[0]] == short).all(),
+                  f"textgen: decode 32's prefix != decode 16 ({sampler}, "
+                  f"prompt edge {p})")
+    print("textgen prefix stability: decode 32's first 16 tokens equal "
+          "decode 16's at both prompt edges, both samplers", flush=True)
+    launches = dict(flash.flash_attention.launches_by_route)
+    check(not any(launches.values()),
+          f"textgen launched flash kernels: {launches}")
+
+    # the runner: six tasks, each alone, then a fresh registry's groups
+    template = load_template("textgen")
+    miner, user = "0x" + "aa" * 20, "0x" + "01" * 20
+    inputs = textgen_inputs()
+    tids = template_world(inputs, miner, user, "textgen")[3]()
+    items = [(model.runner.prepare_hydrated(hydrate_input(dict(raw),
+                                                          template)),
+              taskid2seed(tid)) for raw, tid in zip(inputs, tids)]
+    buckets = {}
+    for i, (h, _) in enumerate(items):
+        buckets.setdefault(bucket_key("m", h), []).append(i)
+    check(len(buckets) == 4, f"textgen: six tasks in {len(buckets)} "
+          "buckets, not 4")
+    t0 = time.perf_counter()
+    cids = [solve_cid_batch(model, [item],
+                            canonical_batch=CANONICAL_BATCH)[0][0]
+            for item in items]
+    alone_s = time.perf_counter() - t0
+    fresh = build()
+    for idx in buckets.values():
+        idx = idx[::-1]
+        again = solve_cid_batch(fresh, [items[i] for i in idx],
+                                canonical_batch=CANONICAL_BATCH)
+        for i, (cid, _) in zip(idx, again):
+            check(cid == cids[i], f"textgen task {i}: CID {cid} != "
+                  f"{cids[i]} (fresh registry, group {idx})")
+    print(f"textgen: six tasks over {len(buckets)} buckets solved one per "
+          f"chunk in {alone_s:.3f} s; a fresh registry's reordered "
+          "bucket groups give identical CIDs: " + " ".join(cids),
+          flush=True)
+
+    # node: golden, boot with the self-test, mine, claim
+    committed = json.loads(
+        (pathlib.Path(__file__).resolve().parent / TG_GOLDEN_FILE)
+        .read_text())
+    check(committed["golden"]["input"] == TG_GOLDEN_INPUT
+          and committed["golden"]["seed"] == GOLDEN_SEED
+          and committed["canonical_batch"] == CANONICAL_BATCH
+          and committed["template"] == "textgen",
+          f"{TG_GOLDEN_FILE} is not the vector phase 10 boots with")
+    build_now = {k: build_info("cuda").get(k) for k in BUILD_FIELDS}
+    built = {k: committed["build"].get(k) for k in BUILD_FIELDS}
+    if build_now == built:
+        golden, source = committed["golden"], TG_GOLDEN_FILE
+    else:
+        golden = record_golden(fresh, TG_GOLDEN_INPUT, GOLDEN_SEED,
+                               canonical_batch=CANONICAL_BATCH,
+                               device="cuda")["golden"]
+        source = f"re-recorded here: this build {build_now} is not {built}"
+    tok, eng, mid, submit = template_world(inputs, miner, user, "textgen")
+    chain = LocalChain(eng, miner)
+    chain.validator_deposit(100 * WAD)
+    cfg = config(mid, golden)
+    node = MinerNode(chain, cfg, build_registry(cfg, device="cuda"))
+    t0 = time.perf_counter()
+    node.boot()
+    print(f"textgen node: booted with golden {golden['cid']} ({source}); "
+          f"self-test passed in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    check(submit() == tids, "textgen: the second world's taskids differ")
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    while node.tick():
+        pass
+    mine_s = time.perf_counter() - t0
+    node_launches = dict(flash.flash_attention.launches_by_route)
+    check(not any(node_launches.values()),
+          f"textgen node launched flash kernels: {node_launches}")
+    check(node.db.failed_jobs() == [],
+          f"textgen node: failed jobs {node.db.failed_jobs()}")
+    for tid, want_cid in zip(tids, cids):
+        sol = eng.solutions.get(bytes.fromhex(tid[2:]))
+        check(sol is not None and "0x" + sol.cid.hex() == want_cid,
+              f"textgen task {tid}: on-chain {sol} != direct {want_cid}")
+    bal0 = tok.balance_of(miner)
+    eng.advance_time(eng.min_claim_solution_time
+                     + cfg.claim_delay_buffer + 1)
+    while node.tick():
+        pass
+    rise = tok.balance_of(miner) - bal0
+    check(node.metrics.solutions_claimed == len(tids)
+          and rise == len(tids) * TASK_FEE * WAD * 9 // 10,
+          f"textgen node: claimed {node.metrics.solutions_claimed} of "
+          f"{len(tids)}, +{rise}")
+    node.close()
+    print(f"textgen node: mined {len(tids)} tasks over {len(buckets)} "
+          f"buckets in {mine_s:.3f} s host time from the first tick to the "
+          f"last reveal; on-chain CIDs equal the direct solve's; claimed "
+          f"{len(tids)}, +{rise / WAD:g} AIUS; {card}", flush=True)
+    del model, fresh, node, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"textgen: phase 10 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches, "launches_node": node_launches,
+            "buckets": rows, "traces": traces}
+
+
+# phase 11, robust_video_matting: a "1080p stream" at 1088x1920 (the
+# multiple of 16 nearest 1080 that matte accepts) through shrink and
+# refine (base 288x512), and a 512x512 clip on the direct path
+RVM_HD = (48, 1088, 1920)
+RVM_SQ = (16, 512, 512)
+RVM_PROBE = "8x128x128"    # MiningConfig.example.json's probe shape
+RVM_GOLDEN_FILE = ("arbius_tpu_torch/goldens/"
+                   "robust_video_matting.h100.bfloat16.json")
+
+
+def phase_rvm_small_reference(torch) -> None:
+    """The tiny float32 RVM config on the card and on the CPU from the
+    same weights, on the direct path and through shrink and refine:
+    uint8 frames within one level."""
+    import dataclasses
+
+    import numpy as np
+
+    from arbius_tpu_torch.models.rvm import (
+        RVMConfig,
+        RVMPipeline,
+        RVMPipelineConfig,
+    )
+
+    cfg = RVMPipelineConfig(model=dataclasses.replace(RVMConfig.tiny(),
+                                                      dtype="float32"))
+    pipes = [RVMPipeline(cfg, device=dev) for dev in ("cpu", "cuda")]
+    params = pipes[0].init_params(seed=0)
+    for pipe in pipes:
+        pipe.load_params(params)
+    rng = np.random.default_rng(0)
+    for t, h, w in ((3, 64, 64), (2, 64, 576)):
+        video = rng.integers(0, 256, (t, h, w, 3), dtype=np.uint8)
+        a, b = (pipe.matte(video).astype(int) for pipe in pipes)
+        diff = abs(a - b)
+        print(f"rvm small reference: tiny f32 {t} frames {h}x{w} (base "
+              f"{pipes[1].base_hw(h, w)}), card vs CPU: max uint8 diff "
+              f"{diff.max()}, differing fraction {(diff > 0).mean():.6f}",
+              flush=True)
+        check(diff.max() <= 1, "tiny RVM card matte disagrees with the CPU")
+
+
+def phase_rvm(torch, flash) -> dict:
+    """Phase 11: robust_video_matting at full width (RVMConfig(), bf16
+    weights). The small reference; then an avc1 clip of probe_clip(48,
+    1088, 1920) through shrink and refine and a 16-frame 512x512 clip on
+    the direct path, each solved by the runner on a model and on a fresh
+    one with identical bytes, with the host's demux + decode and encode
+    seconds, frames/s, device ms per frame (CUDA events), launches per
+    frame and the idle share (a traced matte), and the peak GiB; a node
+    with no content store boots with the committed probe golden
+    (re-recorded where the build differs), and a node with a store mines
+    tasks whose inputs are pinned to it, each on-chain CID the direct
+    solve's. No flash kernel runs. Returns the flash launches of the
+    main path and of the node's mining."""
+    import tempfile
+
+    from arbius_tpu_torch.chain import WAD
+    from arbius_tpu_torch.cli import build_info, record_golden
+    from arbius_tpu_torch.codecs import encode_mp4, encode_mp4_h264
+    from arbius_tpu_torch.codecs.mp4_demux import decode_video_mp4
+    from arbius_tpu_torch.codecs.probe import probe_clip
+    from arbius_tpu_torch.l0.base58 import b58encode
+    from arbius_tpu_torch.l0.cid import (
+        cid_hex,
+        cid_of_solution_files,
+        dag_of_file,
+    )
+    from arbius_tpu_torch.node import (
+        LocalChain,
+        MinerNode,
+        MiningConfig,
+        ModelConfig,
+        build_registry,
+        solve_cid,
+    )
+    from arbius_tpu_torch.node.factory import probe_golden_input
+    from arbius_tpu_torch.node.store import ContentStore
+    from arbius_tpu_torch.templates import hydrate_input, load_template
+    from arbius_tpu_torch.utils import card_info
+
+    card = card_info()
+    t_phase = time.perf_counter()
+    phase_rvm_small_reference(torch)
+    template = load_template("robust_video_matting")
+    blobs = {}
+
+    def pin(blob: bytes) -> str:
+        cid = b58encode(dag_of_file(blob).cid)
+        blobs[cid] = blob
+        return cid
+
+    def config(mid="0x" + "00" * 32, golden=None):
+        return MiningConfig(canonical_batch=CANONICAL_BATCH, models=(
+            ModelConfig(id=mid, template="robust_video_matting",
+                        weights_dtype="bfloat16", golden=golden),))
+
+    def build(resolve=blobs.get, mid="0x" + "00" * 32, golden=None):
+        return build_registry(config(mid, golden), device="cuda",
+                              resolve_file=resolve).get(mid)
+
+    model = build()
+    pipe = model.runner.pipeline
+    n_params = sum(p.numel() for p in pipe.step.state_dict().values())
+    print(f"rvm: built RVMConfig() ({n_params} parameters, bf16 weights)",
+          flush=True)
+    flash.reset_launches()
+    stats = {}
+    for name, (t, h, w) in (("1088x1920", RVM_HD), ("512x512", RVM_SQ)):
+        t0 = time.perf_counter()
+        blob = encode_mp4_h264(probe_clip(t, h, w), fps=8)
+        make_s = time.perf_counter() - t0
+        cid = pin(blob)
+        hydrated = hydrate_input({"input_video": cid}, template)
+        t0 = time.perf_counter()
+        video = decode_video_mp4(blob)
+        decode_s = time.perf_counter() - t0
+        check(video.shape == (t, h, w, 3), f"rvm: decoded {video.shape}")
+        src = pipe.to_device(video)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        alphas, fgrs = pipe.frames(src)
+        b.record()
+        b.synchronize()
+        frames_s = time.perf_counter() - t0
+        device_ms = a.elapsed_time(b)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(bool(torch.isfinite(alphas).all() and torch.isfinite(fgrs).all())
+              and float(alphas.std()) > 0, f"rvm {name}: non-finite or "
+              "flat matte")
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pipe.frames(src)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as work:
+            path = pathlib.Path(work) / "matte.json"
+            prof.export_chrome_trace(str(path))
+            trace = device_trace_summary(json.loads(path.read_text()))
+        # the runner's steps one by one (matte: frames + the host's
+        # composition), then the runner itself on a fresh model
+        t0 = time.perf_counter()
+        out = pipe.matte(video)
+        matte_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        files = {"out-1.mp4": encode_mp4_h264(out, fps=8)}
+        encode_s = time.perf_counter() - t0
+        cid_a = cid_hex(cid_of_solution_files(files))
+        del src, alphas, fgrs, video, out
+        t0 = time.perf_counter()
+        cid_b, _ = solve_cid(build(), hydrated, 0)
+        solve_s = time.perf_counter() - t0
+        check(cid_a == cid_b and files["out-1.mp4"][4:8] == b"ftyp",
+              f"rvm {name}: CID {cid_a} != a fresh model's runner's {cid_b}")
+        busy = trace["busy_ms"] / t
+        stats[name] = {"frames": t, "base": pipe.base_hw(h, w),
+                       "card_span_ms_per_frame": device_ms / t,
+                       "busy_ms_per_frame": busy,
+                       "frames_per_s": t / frames_s,
+                       "kernels_per_frame": trace["kernels"] / t,
+                       "idle_share": 1.0 - busy * t / device_ms,
+                       "peak_gib": peak, "decode_s": decode_s,
+                       "matte_s": matte_s, "encode_s": encode_s,
+                       "solve_s": solve_s}
+        print(f"rvm {name} x {t} frames (base {pipe.base_hw(h, w)}): "
+              f"{t / frames_s:.2f} frames/s on the host clock; per frame "
+              f"{device_ms / t:.3f} ms between CUDA events around the "
+              f"frames, {busy:.3f} ms of it busy (traced, "
+              f"{trace['kernels'] / t:.1f} kernels a frame): idle share "
+              f"{stats[name]['idle_share']:.3f}; peak {peak:.2f} GiB "
+              f"allocated; host: avc1 clip made in {make_s:.2f} s, demux + "
+              f"decode {decode_s:.2f} s, matte (frames + composition) "
+              f"{matte_s:.2f} s, H.264 + MP4 encode {encode_s:.2f} s; a "
+              f"fresh model's runner (decode, matte, encode) {solve_s:.2f} "
+              f"s to the same CID {cid_a}; top "
+              + json.dumps(trace["top"][:4]) + f"; {card}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = dict(flash.flash_attention.launches_by_route)
+    check(not any(launches.values()),
+          f"rvm launched flash kernels: {launches}")
+
+    # node: the probe golden, a boot with no store, mining from a store
+    resolve, probe_raw = probe_golden_input(RVM_PROBE)
+    committed = json.loads(
+        (pathlib.Path(__file__).resolve().parent / RVM_GOLDEN_FILE)
+        .read_text())
+    check(committed["golden"]["input"] == probe_raw
+          and committed["golden"]["probe_video"] == RVM_PROBE
+          and committed["golden"]["seed"] == GOLDEN_SEED
+          and committed["template"] == "robust_video_matting",
+          f"{RVM_GOLDEN_FILE} is not the vector phase 11 boots with")
+    build_now = {k: build_info("cuda").get(k) for k in BUILD_FIELDS}
+    built = {k: committed["build"].get(k) for k in BUILD_FIELDS}
+    if build_now == built:
+        golden, source = committed["golden"], RVM_GOLDEN_FILE
+    else:
+        golden = dict(record_golden(
+            build(resolve), probe_raw, GOLDEN_SEED,
+            canonical_batch=CANONICAL_BATCH, device="cuda")["golden"],
+            probe_video=RVM_PROBE)
+        source = f"re-recorded here: this build {build_now} is not {built}"
+    miner, user = "0x" + "aa" * 20, "0x" + "01" * 20
+    clips = [encode_mp4_h264(probe_clip(8, 256, 256), fps=8),
+             encode_mp4(probe_clip(8, 128, 128), fps=8),
+             encode_mp4_h264(probe_clip(8, 576, 1024), fps=8)]
+    inputs = [{"input_video": pin(c), "output_type": o} for c, o in
+              zip(clips, ("green-screen", "alpha-mask", "foreground-mask"))]
+    direct = [solve_cid(model, hydrate_input(dict(raw), template), 0)[0]
+              for raw in inputs]
+    del model, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        # a world of its own: a closed node stays subscribed to its chain
+        eng, mid = template_world([], miner, user,
+                                  "robust_video_matting")[1:3]
+        cfg = config(mid, golden)
+        bare = MinerNode(LocalChain(eng, miner), cfg,
+                         build_registry(cfg, device="cuda"))
+        check(bare.store is None, "rvm: the bare node has a store")
+        t0 = time.perf_counter()
+        bare.boot()
+        print(f"rvm node: booted with no store and golden {golden['cid']} "
+              f"({source}, the probe clip {RVM_PROBE} made from the "
+              f"vector); self-test passed in {time.perf_counter() - t0:.2f} "
+              "s", flush=True)
+        bare.close()
+        tok, eng, mid, submit = template_world(inputs, miner, user,
+                                               "robust_video_matting")
+        cfg = config(mid, golden)
+        store = ContentStore(work)
+        for blob in clips:
+            store.put_blob(blob)
+        chain = LocalChain(eng, miner)
+        chain.validator_deposit(100 * WAD)
+        node = MinerNode(chain, cfg, build_registry(
+            cfg, device="cuda", resolve_file=store.get_file), store=store)
+        node.boot()
+        tids = submit()
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        while node.tick():
+            pass
+        mine_s = time.perf_counter() - t0
+        node_launches = dict(flash.flash_attention.launches_by_route)
+        check(not any(node_launches.values()),
+              f"rvm node launched flash kernels: {node_launches}")
+        check(node.db.failed_jobs() == [],
+              f"rvm node: failed jobs {node.db.failed_jobs()}")
+        for tid, want_cid in zip(tids, direct):
+            sol = eng.solutions.get(bytes.fromhex(tid[2:]))
+            check(sol is not None and "0x" + sol.cid.hex() == want_cid,
+                  f"rvm task {tid}: on-chain {sol} != direct {want_cid}")
+        node.close()
+    print(f"rvm node: mined {len(tids)} tasks (avc1 256x256 green-screen, "
+          f"MJPEG 128x128 alpha-mask, avc1 576x1024 foreground-mask, 8 "
+          f"frames each) from its store in {mine_s:.2f} s host time from "
+          f"the first tick to the last reveal; on-chain CIDs equal the "
+          f"direct solve's; {card}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"rvm: phase 11 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches, "launches_node": node_launches,
+            "stats": stats}
+
+
 def main() -> int:
     import torch
 
@@ -2101,13 +2708,25 @@ def main() -> int:
     video = phase_video(torch, flash)
     wall_mark("9 text-to-video")
 
+    # -- 10. textgen ------------------------------------------------------------
+    textgen = phase_textgen(torch, flash)
+    wall_mark("10 textgen")
+
+    # -- 11. robust_video_matting ------------------------------------------------
+    rvm = phase_rvm(torch, flash)
+    wall_mark("11 robust_video_matting")
+
     entries = kernel_entries(flash, buckets, {
         "launches": launches, "launches_node": node_launches,
         "launches_node_run": node_run_launches,
         "launches_kandinsky2": k2["launches"],
         "launches_kandinsky2_node": k2["launches_node"],
         "launches_video": video["launches"],
-        "launches_video_node": video["launches_node"]})
+        "launches_video_node": video["launches_node"],
+        "launches_textgen": textgen["launches"],
+        "launches_textgen_node": textgen["launches_node"],
+        "launches_rvm": rvm["launches"],
+        "launches_rvm_node": rvm["launches_node"]})
     print("phase wall seconds: " + json.dumps(walls), flush=True)
     print(card)
     print(json.dumps({"kernels": entries}))

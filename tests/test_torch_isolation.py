@@ -54,7 +54,7 @@ def test_every_module_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 75
+    assert int(out.stdout.strip()) >= 84
 
 
 def test_entry_points_default_to_cuda():
@@ -64,7 +64,12 @@ def test_entry_points_default_to_cuda():
         Kandinsky2Config,
         Kandinsky2Pipeline,
     )
+    from arbius_tpu_torch.models.rvm import RVMPipeline, RVMPipelineConfig
     from arbius_tpu_torch.models.sd15 import SD15Config, SD15Pipeline
+    from arbius_tpu_torch.models.textgen import (
+        TextGenConfig,
+        TextGenPipeline,
+    )
     from arbius_tpu_torch.models.video import (
         Text2VideoConfig,
         Text2VideoPipeline,
@@ -82,13 +87,16 @@ def test_entry_points_default_to_cuda():
         build_registry(MiningConfig(compile_cache_dir=None, models=(
             ModelConfig(id="0x" + "00" * 32, template="kandinsky2",
                         tiny=True),)))
-    for template in ("damo", "zeroscopev2xl"):
+    for template in ("damo", "zeroscopev2xl", "textgen",
+                     "robust_video_matting"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_registry(MiningConfig(compile_cache_dir=None, models=(
                 ModelConfig(id="0x" + "00" * 32, template=template,
-                            tiny=True),)))
+                            tiny=True),)), resolve_file=lambda cid: None)
     for pipeline, config in ((SD15Pipeline, SD15Config),
                              (Kandinsky2Pipeline, Kandinsky2Config),
-                             (Text2VideoPipeline, Text2VideoConfig)):
+                             (Text2VideoPipeline, Text2VideoConfig),
+                             (TextGenPipeline, TextGenConfig),
+                             (RVMPipeline, RVMPipelineConfig)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             pipeline(config.tiny())

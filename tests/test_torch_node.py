@@ -723,17 +723,33 @@ def test_boot_self_test_with_recorded_golden(registry, corrupt):
     ({"fleet": {"enabled": True}}, 12),
     ({"precision": {"default": "int8"}}, 6),
     ({"precision": {"templates": {"anythingv3": "fp8"}}}, 6),
-    ({"models": [{"id": "0x" + "cd" * 32, "template": "textgen"}]}, 8),
+    ({"models": [{"id": "0x" + "cd" * 32, "template": "textgen"}]}, None),
     ({"mesh": {"sp": 2}, "models": [{"id": "0x" + "ce" * 32,
                                      "template": "damo",
                                      "sp_strategy": "ulysses"}]}, 11),
 ], ids=lambda v: json.dumps(v) if isinstance(v, dict) else str(v))
 def test_unported_settings_refused_at_boot(overrides, item):
+    """Each setting whose module the port lacks raises BootError naming
+    its ROADMAP item; a setting once refused whose family is ported now
+    (item None: a full-width textgen model) boots and solves."""
     from arbius_tpu_torch.node import BootError, load_config
 
     cfg = load_config(overrides)
     P = _pkg("arbius_tpu_torch")
     eng = P.Engine(P.TokenLedger(), start_time=0)
+    if item is None:
+        [m] = cfg.models
+        registry = P.node.build_registry(cfg, device="cpu")
+        node = P.node.MinerNode(P.node.LocalChain(eng, MINER), cfg, registry)
+        node.boot()
+        model = registry.get(m.id)
+        hydrated = model.runner.prepare_hydrated(P.hydrate_input(
+            {"prompt": "arbius test cat"}, model.template))
+        [(cid, files)] = P.node.solve_cid_batch(
+            model, [(hydrated, 1337)], canonical_batch=cfg.canonical_batch)
+        assert cid.startswith("0x1220") and set(files) == {"out-1.txt"}
+        node.close()
+        return
     with pytest.raises(BootError, match=f"ROADMAP queue 1 item {item}\\)"):
         node = P.node.MinerNode(P.node.LocalChain(eng, MINER), cfg,
                                 P.node.ModelRegistry())
@@ -842,14 +858,20 @@ def test_registry_refuses_kandinsky2_unported_settings(overrides, item):
 
 @pytest.mark.parametrize("template,mesh,item", [
     ("zeroscopev2xl", {"sp": 2}, 11), ("damo", {"dp": 2, "sp": 2}, 11),
-    ("robust_video_matting", None, 10)])
+    ("robust_video_matting", None, None)])
 def test_registry_refuses_unported_templates(template, mesh, item):
-    """robust_video_matting waits for its slice; the video templates
-    build on one device only (their frame-axis sequence parallelism,
-    ring or ulysses, waits for multi-device)."""
+    """The video templates build on one device only (their frame-axis
+    sequence parallelism, ring or ulysses, waits for multi-device);
+    robust_video_matting (item None) builds, given a file resolver."""
     P = _pkg("arbius_tpu_torch")
+    mid = "0x" + "00" * 32
     cfg = _config(P, mesh=mesh, models=(P.node.ModelConfig(
-        id="0x" + "00" * 32, template=template, tiny=True),))
+        id=mid, template=template, tiny=True),))
+    if item is None:
+        reg = P.node.build_registry(cfg, device="cpu",
+                                    resolve_file=lambda cid: None)
+        assert type(reg.get(mid).runner).__name__ == "RVMRunner"
+        return
     with pytest.raises(P.node.ConfigError, match=f"item {item}\\)"):
         P.node.build_registry(cfg, device="cpu")
 
