@@ -39,13 +39,15 @@ from arbius_tpu_torch.models.kandinsky2.prior import (
     prior_sample,
     prior_stats_init,
 )
-from arbius_tpu_torch.models.sd15.bridge import init_params
+from arbius_tpu_torch.models.sd15.bridge import init_params, load_weights
 from arbius_tpu_torch.models.sd15.text_encoder import (
     TextEncoder,
     TextEncoderConfig,
 )
 from arbius_tpu_torch.models.sd15.tokenizer import ByteTokenizer
 from arbius_tpu_torch.models.sd15.vae import decode_to_images
+from arbius_tpu_torch.quant.core import dequantize_first
+from arbius_tpu_torch.quant.modes import mode_tag, validate_mode
 from arbius_tpu_torch.schedulers import get_sampler
 from arbius_tpu_torch.utils.platform import setup_device
 
@@ -106,8 +108,14 @@ class Kandinsky2Pipeline:
     MOVQ_FACTOR = 8
 
     def __init__(self, config: Kandinsky2Config | None = None, tokenizer=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 precision: str = "bf16"):
         self.config = config or Kandinsky2Config()
+        # precision mode (docs/quantization.md): int8 and fp8 hold the
+        # eligible weights quantized and each bucket program begins by
+        # dequantizing them; each mode is its own determinism class
+        self.precision = validate_mode(precision)
+        self.quantized = None
         if self.config.text.max_length < self.config.prior.text_len:
             raise ValueError(
                 f"text max_length ({self.config.text.max_length}) must be "
@@ -129,17 +137,23 @@ class Kandinsky2Pipeline:
 
     def load_params(self, state_dict: dict[str, torch.Tensor]) -> None:
         """Copy a state_dict in (every key required); linear and conv
-        weights round to their compute dtype here, once."""
-        self.models.load_state_dict(state_dict, strict=True)
+        weights round to their compute dtype here, once. In int8 or fp8
+        the eligible leaves are quantized here instead
+        (bridge.load_weights)."""
+        self.quantized = load_weights(self.models, state_dict,
+                                      self.precision)
 
     def bucket_tag(self, batch: int, height: int, width: int, steps: int,
                    scheduler: str) -> str:
-        """The one definition of this family's bucket tag."""
+        """The one definition of this family's bucket tag; a quantized
+        mode suffixes it (".int8"/".fp8")."""
         return "kandinsky2." + ".".join(
-            str(k) for k in (batch, height, width, steps, scheduler))
+            str(k) for k in (batch, height, width, steps, scheduler)) \
+            + mode_tag(self.precision)
 
     # -- the bucket program ------------------------------------------------
     @torch.no_grad()
+    @dequantize_first
     def _run(self, ids, guidance, seeds_lo, seeds_hi, height, width, steps,
              scheduler) -> torch.Tensor:
         m, cfg = self.models, self.config

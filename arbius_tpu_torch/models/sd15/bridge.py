@@ -19,6 +19,17 @@ flax path joined with '.', and only the leaves change:
   - any other parameter (`pos_embed`, BNInf's `mean` and `var`, the prior's rank-3 `pos_embed` and
     `prd_embed`, the top-level `prior_stats`) keeps its name and shape.
 
+`quant_layout` names the leaves the reference quantizes in int8 and fp8
+mode (`_eligible`: floating with ndim >= 2 in the flax tree) and, for
+each, where `_convert` put its output axis (`quant.core.QuantAxis`):
+dim 0 of a Linear or conv weight, and the last dim of every leaf it keeps
+in flax's layout (Embed's `weight [V, W]`, `pos_embed`, the prior's
+embeddings, `prior_stats`). The reference scales a DenseGeneral q/k/v
+kernel `[W, H, D]` and its bias `[H, D]` per D, so their Linear weight
+`[H*D, W]` and flattened bias `[H*D]` are viewed as `[H, D, W]` and
+`[H, D]` with the axis on D. `load_weights` loads a state into the
+modules in a precision mode.
+
 `init_params` draws flax's default distributions for the same keys from
 an explicit `torch.Generator` (lecun-normal kernels, zero biases and other
 parameters, unit norm scales, embeddings normal(1/sqrt(width)), and
@@ -31,6 +42,15 @@ import math
 
 import numpy as np
 import torch
+from torch import nn
+
+from arbius_tpu_torch.models.sd15.text_encoder import SelfAttention
+from arbius_tpu_torch.quant.core import (
+    QuantAxis,
+    QuantizedWeights,
+    quantize_state,
+)
+from arbius_tpu_torch.quant.modes import DEFAULT_MODE
 
 
 def _convert(path: tuple[str, ...], leaf: np.ndarray) -> tuple[str, np.ndarray]:
@@ -76,6 +96,46 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
     walk(tree, ())
     return out
+
+
+def quant_layout(models: nn.Module) -> dict[str, QuantAxis]:
+    """The port keys whose flax leaves the reference quantizes, each
+    with its output axis in the port's layout (`_convert` read
+    backwards; tests/test_torch_quant.py holds the two together)."""
+    out, heads = {}, {}
+    for name, mod in models.named_modules():
+        prefix = f"{name}." if name else ""
+        for pname, p in mod.named_parameters(recurse=False):
+            key = prefix + pname
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+                if pname == "weight":     # Dense/Conv kernel: O first
+                    out[key] = QuantAxis(tuple(p.shape), 0)
+            elif p.dim() >= 2:            # kept in flax's layout
+                out[key] = QuantAxis(tuple(p.shape), p.dim() - 1)
+        if isinstance(mod, SelfAttention):
+            heads[prefix] = mod.heads
+    # DenseGeneral q/k/v: kernel [W, H, D] and bias [H, D], scaled per D;
+    # the port's [H*D, W] and [H*D] viewed as [H, D, ...]
+    for prefix, h in heads.items():
+        for child in ("query", "key", "value"):
+            hd, width = out[f"{prefix}{child}.weight"].view
+            out[f"{prefix}{child}.weight"] = QuantAxis((h, hd // h, width), 1)
+            out[f"{prefix}{child}.bias"] = QuantAxis((h, hd // h), 1)
+    return out
+
+
+def load_weights(models: nn.Module, state: dict[str, torch.Tensor],
+                 precision: str) -> QuantizedWeights | None:
+    """Copy `state` into `models` (every key required). In bf16 linear
+    and conv weights round to their compute dtype here, once, and None
+    comes back; in int8 or fp8 the leaves of `quant_layout` are
+    quantized here and stay resident in the returned QuantizedWeights."""
+    if precision == DEFAULT_MODE:
+        models.load_state_dict(state, strict=True)
+        return None
+    layout = quant_layout(models)
+    return QuantizedWeights(models, quantize_state(state, precision, layout),
+                            layout)
 
 
 # flax's normal(std) initialisers, by state-dict key suffix (the first

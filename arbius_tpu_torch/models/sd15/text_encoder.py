@@ -48,7 +48,7 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-class _SelfAttention(nn.Module):
+class SelfAttention(nn.Module):
     def __init__(self, width: int, heads: int, dtype, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
@@ -77,7 +77,7 @@ class _EncoderLayer(nn.Module):
         super().__init__()
         dt = cfg.tdtype
         self.LayerNorm_0 = LayerNorm32(cfg.width, device=device)
-        self.attn = _SelfAttention(cfg.width, cfg.heads, dt, device)
+        self.attn = SelfAttention(cfg.width, cfg.heads, dt, device)
         self.LayerNorm_1 = LayerNorm32(cfg.width, device=device)
         self.Dense_0 = nn.Linear(cfg.width, cfg.width * 4, dtype=dt,
                                  device=device)

@@ -1,6 +1,6 @@
 """textgen: deterministic LLM text generation (the reference's
-docs/text-serving.md), in PyTorch, single-device. Precision modes wait for
-ROADMAP.md queue 1 item 6 and the mesh for item 11."""
+docs/text-serving.md), in PyTorch, single-device, in bf16, int8 or fp8.
+The mesh waits for ROADMAP.md queue 1 item 11."""
 from arbius_tpu_torch.models.textgen.model import TextGenConfig, TextGenModel
 from arbius_tpu_torch.models.textgen.pipeline import (
     BOS_ID,

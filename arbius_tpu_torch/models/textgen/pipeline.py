@@ -13,7 +13,10 @@ logits at step 0, and a `lax.scan` whose step i embeds t_{i-1} at
 position P+i-1 and samples t_i. Here that program is `_run`, a Python
 loop over static positions. On CUDA, `generate` captures it once per
 bucket as a CUDA graph over static input buffers (the prompt ids and the
-seed words) and replays it: one launch a chunk. `_run` run eagerly is
+seed words) and replays it: one launch a chunk. In int8 or fp8 `_run`
+begins by dequantizing the weights, so the dequantization is the graph's
+first nodes, writing into the graph's own memory, from which the rest of
+the graph reads them. `_run` run eagerly is
 the plain loop: the CPU always takes it, and the card only when the
 caller passes `eager=True` (chip_smoke.py holds the graph to it). A
 failed capture raises.
@@ -33,9 +36,11 @@ import numpy as np
 import torch
 
 from arbius_tpu_torch import random as jrandom
-from arbius_tpu_torch.models.sd15.bridge import init_params
+from arbius_tpu_torch.models.sd15.bridge import init_params, load_weights
 from arbius_tpu_torch.models.sd15.tokenizer import ByteTokenizer
 from arbius_tpu_torch.models.textgen.model import TextGenConfig, TextGenModel
+from arbius_tpu_torch.quant.core import dequantize_first
+from arbius_tpu_torch.quant.modes import mode_tag, validate_mode
 from arbius_tpu_torch.utils.platform import setup_device
 
 # the byte tokenizer's control ids: raw UTF-8 bytes are ids 0..255
@@ -94,8 +99,14 @@ class TextGenPipeline:
     def __init__(self, config: TextGenConfig | None = None,
                  device: str | torch.device = "cuda",
                  prompt_buckets: tuple = (32, 64),
-                 decode_buckets: tuple = (16, 32), top_k: int = 8):
+                 decode_buckets: tuple = (16, 32), top_k: int = 8,
+                 precision: str = "bf16"):
         self.config = config or TextGenConfig()
+        # precision mode (docs/quantization.md): int8 and fp8 hold the
+        # eligible weights quantized and each bucket program begins by
+        # dequantizing them; each mode is its own determinism class
+        self.precision = validate_mode(precision)
+        self.quantized = None
         self.prompt_buckets = tuple(sorted(int(b) for b in prompt_buckets))
         self.decode_buckets = tuple(sorted(int(b) for b in decode_buckets))
         if not self.prompt_buckets or not self.decode_buckets:
@@ -157,14 +168,20 @@ class TextGenPipeline:
     def load_params(self, state_dict: dict[str, torch.Tensor]) -> None:
         """Copy a state_dict in (every key required); linear weights round
         to their compute dtype here, once. The copy is in place, so a
-        captured graph reads the new weights."""
-        self.model.load_state_dict(state_dict, strict=True)
+        captured graph reads the new weights. In int8 or fp8 the eligible
+        leaves are quantized here instead (bridge.load_weights) into new
+        storage, which no captured graph reads: the graphs are dropped."""
+        self.quantized = load_weights(self.model, state_dict, self.precision)
+        if self.quantized is not None:
+            self._graphs.clear()
 
     def bucket_tag(self, batch: int, prompt_bucket: int, decode_bucket: int,
                    sampler: str) -> str:
-        """The one definition of this family's bucket tag."""
+        """The one definition of this family's bucket tag; a quantized
+        mode suffixes it (".int8"/".fp8")."""
         return "textgen." + ".".join(
-            str(k) for k in (batch, prompt_bucket, decode_bucket, sampler))
+            str(k) for k in (batch, prompt_bucket, decode_bucket, sampler)) \
+            + mode_tag(self.precision)
 
     # -- the bucket program ------------------------------------------------
     def _sample(self, sampler: str, logits: torch.Tensor, keys: torch.Tensor,
@@ -178,6 +195,7 @@ class TextGenPipeline:
         return idx.gather(1, choice[:, None])[:, 0]
 
     @torch.no_grad()
+    @dequantize_first
     def _run(self, ids: torch.Tensor, seeds_lo: torch.Tensor,
              seeds_hi: torch.Tensor, decode_bucket: int,
              sampler: str) -> torch.Tensor:

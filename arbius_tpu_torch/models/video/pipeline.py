@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from arbius_tpu_torch import random as jrandom
-from arbius_tpu_torch.models.sd15.bridge import init_params
+from arbius_tpu_torch.models.sd15.bridge import init_params, load_weights
 from arbius_tpu_torch.models.sd15.text_encoder import (
     TextEncoder,
     TextEncoderConfig,
@@ -48,6 +48,8 @@ from arbius_tpu_torch.models.sd15.vae import (
     decode_to_images,
 )
 from arbius_tpu_torch.models.video.unet3d import UNet3DCondition, UNet3DConfig
+from arbius_tpu_torch.quant.core import dequantize_first
+from arbius_tpu_torch.quant.modes import mode_tag, validate_mode
 from arbius_tpu_torch.schedulers import get_sampler
 from arbius_tpu_torch.utils.platform import setup_device
 
@@ -95,8 +97,14 @@ class Text2VideoPipeline:
     VAE_FACTOR = 8
 
     def __init__(self, config: Text2VideoConfig | None = None, tokenizer=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 precision: str = "bf16"):
         self.config = config or Text2VideoConfig()
+        # precision mode (docs/quantization.md): int8 and fp8 hold the
+        # eligible weights quantized and each bucket program begins by
+        # dequantizing them; each mode is its own determinism class
+        self.precision = validate_mode(precision)
+        self.quantized = None
         if self.config.text.width != self.config.unet.context_dim:
             raise ValueError(
                 f"text width ({self.config.text.width}) must equal unet "
@@ -120,14 +128,19 @@ class Text2VideoPipeline:
 
     def load_params(self, state_dict: dict[str, torch.Tensor]) -> None:
         """Copy a state_dict in (every key required); linear and conv
-        weights round to their compute dtype here, once."""
-        self.models.load_state_dict(state_dict, strict=True)
+        weights round to their compute dtype here, once. In int8 or fp8
+        the eligible leaves are quantized here instead
+        (bridge.load_weights)."""
+        self.quantized = load_weights(self.models, state_dict,
+                                      self.precision)
 
     def bucket_tag(self, batch: int, frames: int, height: int, width: int,
                    steps: int, scheduler: str) -> str:
-        """The one definition of this family's bucket tag."""
+        """The one definition of this family's bucket tag; a quantized
+        mode suffixes it (".int8"/".fp8")."""
         return "video." + ".".join(
-            str(k) for k in (batch, frames, height, width, steps, scheduler))
+            str(k) for k in (batch, frames, height, width, steps,
+                             scheduler)) + mode_tag(self.precision)
 
     # -- the bucket program ------------------------------------------------
     def noise(self, keys: torch.Tensor, tag: int, frames: int,
@@ -150,6 +163,7 @@ class Text2VideoPipeline:
                           for i in range(0, latents.shape[0], per)])
 
     @torch.no_grad()
+    @dequantize_first
     def _run(self, ids_c, ids_u, guidance, seeds_lo, seeds_hi, frames,
              height, width, steps, scheduler) -> torch.Tensor:
         m = self.models

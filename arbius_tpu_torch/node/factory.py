@@ -3,9 +3,12 @@
 Twin of arbius_tpu/node/factory.py for all six templates, on a torch
 device. Weights come from the caller (e.g. the bridge's `params_from_jax`)
 or from the pipeline's seeded random init (same FLOPs, no weights
-download). Checkpoints, the CLIP BPE tokenizer, precision modes other
-than bf16 and meshes are not ported yet: a config that names one raises
-`ConfigError` naming the ROADMAP.md queue 1 item that ports it.
+download). Each pipeline serves its template's precision mode
+(`cfg.precision.mode_for`): in int8 or fp8 it quantizes the weights once
+at load, after the `weights_dtype` cast, as the reference's factory does
+(init, cast, quantize). Checkpoints, the CLIP BPE tokenizer and meshes
+are not ported yet: a config that names one raises `ConfigError` naming
+the ROADMAP.md queue 1 item that ports it.
 """
 from __future__ import annotations
 
@@ -67,7 +70,8 @@ def _load(pipe, params, seed: int, weights_dtype: str):
     """Load `params` into `pipe`, else its seeded random weights.
     weights_dtype "bfloat16" rounds every floating parameter to bf16 once
     (the reference casts its whole tree); linear and conv weights are
-    stored in the compute dtype either way."""
+    stored in the compute dtype either way. A pipeline in int8 or fp8
+    quantizes the cast weights as it loads them (`load_params`)."""
     state = params if params is not None else pipe.init_params(seed)
     if weights_dtype == "bfloat16":
         state = {k: v.to(torch.bfloat16).to(v.dtype)
@@ -77,25 +81,27 @@ def _load(pipe, params, seed: int, weights_dtype: str):
 
 
 def _runner(template: str, *, tiny: bool, device, params, seed: int,
-            weights_dtype: str = "float32"):
+            weights_dtype: str = "float32", precision: str = "bf16"):
     """`template`'s runner over its pipeline (tiny or full config) on
-    `device` with `params`, else seeded random weights (`_load`)."""
+    `device` in `precision` with `params`, else seeded random weights
+    (`_load`)."""
     config_cls, pipeline_cls, runner_cls = _FAMILIES[template]
     cfg = config_cls.tiny() if tiny else config_cls()
     pipe = pipeline_cls(cfg, tokenizer=tiny_byte_tokenizer(cfg.text)
-                        if tiny else None, device=device)
+                        if tiny else None, device=device,
+                        precision=precision)
     return runner_cls(_load(pipe, params, seed, weights_dtype))
 
 
 def _textgen(m: ModelConfig, tg: TextgenConfig, *, device, params,
-             seed: int) -> TextGenRunner:
+             seed: int, precision: str) -> TextGenRunner:
     """textgen's runner: the fleet-wide sequence-bucket policy
     (`cfg.textgen`: the edges and top_k) on top of the model's config."""
     cfg = TextGenConfig.tiny() if m.tiny else TextGenConfig()
     pipe = TextGenPipeline(cfg, device=device,
                            prompt_buckets=tuple(tg.prompt_buckets),
                            decode_buckets=tuple(tg.decode_buckets),
-                           top_k=tg.top_k)
+                           top_k=tg.top_k, precision=precision)
     return TextGenRunner(_load(pipe, params, seed, m.weights_dtype))
 
 
@@ -174,9 +180,6 @@ def _check_ported(m: ModelConfig, mode: str, mesh: dict | None) -> None:
             f"precision mode {mode!r} is not shipped for template "
             "robust_video_matting — the matting family serves bf16 only "
             "(docs/quantization.md)")
-    if mode != "bf16":
-        raise ConfigError(f"model {m.id}: precision mode {mode!r} is not "
-                          "ported yet (ROADMAP queue 1 item 6)")
     if m.checkpoint:
         raise ConfigError(f"model {m.id}: checkpoints are not ported yet; "
                           "weights come from `params` or the seeded init "
@@ -205,7 +208,8 @@ def build_registry(cfg: MiningConfig, device: str | torch.device = "cuda",
             log.warning("model %s: unknown template %r; skipping",
                         m.id, m.template)
             continue
-        _check_ported(m, cfg.precision.mode_for(m.template), cfg.mesh)
+        mode = cfg.precision.mode_for(m.template)
+        _check_ported(m, mode, cfg.mesh)
         if m.template == "robust_video_matting" and resolve_file is None \
                 and not (m.golden or {}).get("probe_video"):
             log.warning("model %s: robust_video_matting needs a "
@@ -217,12 +221,13 @@ def build_registry(cfg: MiningConfig, device: str | torch.device = "cuda",
                         m.id)
         kw = dict(device=device, params=params, seed=0)
         if m.template == "textgen":
-            runner = _textgen(m, cfg.textgen, **kw)
+            runner = _textgen(m, cfg.textgen, precision=mode, **kw)
         elif m.template == "robust_video_matting":
             runner = _rvm(m, resolve_file, **kw)
         else:
             runner = _runner(m.template, tiny=m.tiny,
-                             weights_dtype=m.weights_dtype, **kw)
+                             weights_dtype=m.weights_dtype, precision=mode,
+                             **kw)
         golden = None
         if m.golden is not None:
             golden = (dict(m.golden["input"]), int(m.golden["seed"]),

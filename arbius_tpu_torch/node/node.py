@@ -25,8 +25,8 @@ device. What reaches JAX or an unported module changes:
   - `MinerNode` refuses, with `BootError` naming the ROADMAP item that
     ports it, every setting that needs a module the port lacks: a mesh
     of more than one device, `aot_cache.enabled`, `compile_cache_dir`,
-    `perfscope.enabled`, `alerts.enabled`, `fleet.enabled` and a
-    precision mode other than bf16 (`_refuse_unported`). So
+    `perfscope.enabled`, `alerts.enabled` and `fleet.enabled`
+    (`_refuse_unported`). So
     the mesh build and contract audit, the AOT cache, the perfscope
     cards and the alert engine are gone from the body, with the mesh
     intake gate; no bucket is disk-warm (`bucket_disk_warm`,
@@ -39,7 +39,9 @@ device. What reaches JAX or an unported module changes:
     ops/flash.py picks its route by a fixed rule and has no override.
   - The boot self-test solves the golden at the canonical batch
     (`solve_cid_batch`, padded), the determinism class the node mines
-    in: cuBLAS and cuDNN pick kernels by batch size.
+    in: cuBLAS and cuDNN pick kernels by batch size. It runs through the
+    model's runner, which the factory built in the model's precision
+    mode, so an int8 or fp8 golden is solved in its own mode.
   - `profile_dir`/`profile_every` write a `torch.profiler` Chrome trace
     of every Nth solve dispatch.
 """
@@ -168,10 +170,6 @@ def _refuse_unported(config: MiningConfig) -> None:
         if on:
             raise BootError(f"{name}: not ported yet (ROADMAP queue 1 "
                             f"item {item})")
-    modes = {config.precision.default, *config.precision.templates.values()}
-    if modes != {"bf16"}:
-        raise BootError(f"precision modes {sorted(modes)}: the port serves "
-                        "bf16 only (ROADMAP queue 1 item 6)")
 
 
 class MinerNode:

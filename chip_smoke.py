@@ -151,10 +151,32 @@ its own lines with timings:
      are pinned to it (avc1 and MJPEG, all three output types, one
      through refine), each on-chain CID the direct solve's. Phases 10
      and 11 launch no flash kernel.
+  12. precision modes (int8 and fp8: 1-byte weights with float32 scales
+     per output channel, dequantized at the start of every bucket
+     program): the tiny float32 config in int8 on the card and the CPU
+     (uint8 within one level); for anythingv3 in int8 and fp8 (512x512,
+     20 steps, DPMSolverMultistep), kandinsky2 (768x768, 50 steps), damo
+     (16 frames at 256x256, 50 steps) and textgen in int8, a MinerNode
+     on LocalChain booted with the committed
+     arbius_tpu_torch/goldens/<template>.h100.<mode>.json (re-recorded
+     into chiprun_out/goldens/ where the build differs) passes its
+     self-test at the golden input
+     and mines tasks through claim (anythingv3 six, kandinsky2 and damo
+     four, textgen six), each chunk launching its bf16 twin's flash
+     kernels, the cost model's rows and `arbius_precision_models`
+     carrying the mode, no full-width weights left after a chunk; a
+     fresh anythingv3 pipeline in each mode re-solves the six in other
+     chunk groupings to the on-chain CIDs, each chunk beside bf16's (p50
+     and sol/h per mode, paired); each mode's golden differs from bf16's
+     at its input (textgen's samples top_k), and no two modes share an
+     anythingv3 CID; per family
+     and mode the resident weight GiB after the build and the peak over
+     a PEAK_STEPS-step chunk (int8 resident below bf16's), and the
+     dequantization's leaves, kernels and device ms.
 
 Each phase prints its wall seconds. Any failed check raises and the exit
 code is not 0. The last lines are the card, a `kernels` JSON line (with
-each route's launches in phases 4, 6, 7, 8, 9, 10 and 11) and
+each route's launches in phases 4, 6, 7, 8, 9, 10, 11 and 12) and
 `{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, where CUDA is not available.
 """
@@ -587,8 +609,8 @@ def kernel_entries(flash, buckets: dict, launches: dict) -> list[dict]:
     """The `kernels` line: per route, phase 2's summaries (`buckets`, as
     `phase_kernels` returns them; times per 512x512 batch, and per batch
     of each other bucket timed) beside `launches`, each a name mapped to
-    the route's launch counts of one run (phases 4, 6, 7, 8, 9, 10 and
-    11; the last two launch none)."""
+    the route's launch counts of one run (phases 4, 6, 7, 8, 9, 10, 11
+    and 12; 10 and 11 launch none)."""
     tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
     names = {"cuda_core": "flash_attention",
              "tensor_core": "flash_attention_tc",
@@ -633,8 +655,9 @@ def kernel_entries(flash, buckets: dict, launches: dict) -> list[dict]:
     return entries
 
 
-def phase_small_reference(torch) -> None:
-    """Tiny float32 config on the card vs on the CPU, same weights."""
+def phase_small_reference(torch, precision: str = "bf16") -> None:
+    """Tiny float32 config on the card vs on the CPU, same weights, in
+    `precision` (int8 and fp8 quantize them on each device at load)."""
     import dataclasses
 
     from arbius_tpu_torch.models.sd15 import SD15Config, SD15Pipeline
@@ -643,7 +666,8 @@ def phase_small_reference(torch) -> None:
     tiny = SD15Config.tiny()
     cfg = SD15Config(*(dataclasses.replace(c, dtype="float32")
                        for c in (tiny.unet, tiny.vae, tiny.text)))
-    pipes = [SD15Pipeline(cfg, tiny_byte_tokenizer(cfg.text), device=dev)
+    pipes = [SD15Pipeline(cfg, tiny_byte_tokenizer(cfg.text), device=dev,
+                          precision=precision)
              for dev in ("cpu", "cuda")]
     params = pipes[0].init_params(seed=0)
     images = []
@@ -654,9 +678,9 @@ def phase_small_reference(torch) -> None:
             width=64, height=64, num_inference_steps=2,
             scheduler=SCHEDULER, guidance_scale=[7.5, 3.0]).astype(int))
     diff = abs(images[0] - images[1])
-    print(f"small reference: tiny f32 64x64 card vs CPU: max uint8 diff "
-          f"{diff.max()}, differing fraction {(diff > 0).mean():.6f}",
-          flush=True)
+    print(f"small reference: tiny f32 64x64 ({precision} mode) card vs "
+          f"CPU: max uint8 diff {diff.max()}, differing fraction "
+          f"{(diff > 0).mean():.6f}", flush=True)
     check(diff.max() <= 1 and (diff > 0).mean() <= 0.01,
           "tiny card solve disagrees with the CPU solve")
 
@@ -2508,6 +2532,466 @@ def phase_rvm(torch, flash) -> dict:
             "stats": stats}
 
 
+# phase 12, precision modes: the int8 and fp8 boot self-test vectors the
+# port commits, by (template, mode): the golden input (seed GOLDEN_SEED,
+# bf16 weights, canonical batch CANONICAL_BATCH), which
+# `record_precision_golden` records. Each must tell its mode from bf16:
+# textgen's greedy tokens at TG_GOLDEN_INPUT are the same in int8 as in
+# bf16 on the H100, and so are its 16 top_k tokens, so its int8 vector
+# samples 32 top_k tokens, where they differ
+TG_INT8_GOLDEN_INPUT = {"prompt": "arbius test cat", "max_new_tokens": 32,
+                        "sampler": "top_k"}
+PRECISION_GOLDENS = {("anythingv3", "int8"): GOLDEN_INPUT,
+                     ("anythingv3", "fp8"): GOLDEN_INPUT,
+                     ("kandinsky2", "int8"): K2_GOLDEN_INPUT,
+                     ("damo", "int8"): VIDEO_GOLDEN_INPUT,
+                     ("textgen", "int8"): TG_INT8_GOLDEN_INPUT}
+# each template's committed bf16 vector and its input
+BF16_GOLDENS = {"anythingv3": (GOLDEN_FILE, GOLDEN_INPUT),
+                "kandinsky2": (K2_GOLDEN_FILE, K2_GOLDEN_INPUT),
+                "damo": (VIDEO_GOLDEN_FILE, VIDEO_GOLDEN_INPUT),
+                "textgen": (TG_GOLDEN_FILE, TG_GOLDEN_INPUT)}
+# the steps of the chunk whose peak memory phase 12 reads: every step
+# runs the same operations on the same live tensors, so the peak does
+# not depend on the count
+PEAK_STEPS = 2
+# allocations a node keeps beside its weights: a 32 MiB cuBLAS workspace
+# per stream (CUBLAS_WORKSPACE_CONFIG=:4096:8), and textgen warms each
+# captured graph up on a stream of its own (264 MiB after mining four
+# buckets on the H100); phase 12 holds what mining leaves behind under
+# the larger of this and half the full-width weights
+KEPT_BYTES = 512 << 20
+
+
+def precision_golden_file(template: str, mode: str) -> str:
+    return f"arbius_tpu_torch/goldens/{template}.h100.{mode}.json"
+
+
+def record_precision_golden(torch, template: str, mode: str) -> dict:
+    """The boot self-test vector of `template` in `mode` on this card:
+    record-golden's function (`cli.record_golden`; record-golden itself
+    has no precision flag, as the reference's has none) over a registry
+    built from a MiningConfig whose `precision` names the mode, at the
+    PRECISION_GOLDENS input. Written, in the committed files' format,
+    to chiprun_out/goldens/ beside this script, from where a new vector
+    is committed under arbius_tpu_torch/goldens/. Phase 12 calls it
+    where the card's build is not the committed vector's; with the
+    kernels built, `python3 -c "import torch, chip_smoke;
+    chip_smoke.record_precision_golden(torch, 'textgen', 'int8')"`
+    records one alone."""
+    from arbius_tpu_torch.cli import record_golden
+
+    cfg = precision_config(template, mode)
+    registry, _, _ = resident_build(torch, cfg)
+    rec = record_golden(registry.get(cfg.models[0].id),
+                        PRECISION_GOLDENS[template, mode], GOLDEN_SEED,
+                        canonical_batch=CANONICAL_BATCH, device="cuda")
+    vector = {"template": template, "tiny": False,
+              "weights_dtype": cfg.models[0].weights_dtype,
+              "precision": mode, "canonical_batch": CANONICAL_BATCH, **rec}
+    out = pathlib.Path(__file__).resolve().parent / "chiprun_out" / "goldens"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / pathlib.Path(precision_golden_file(template, mode)).name) \
+        .write_text(json.dumps(vector, sort_keys=True) + "\n")
+    del registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return vector
+
+
+def precision_config(template: str, mode: str, mid: str = "0x" + "00" * 32,
+                     golden: dict | None = None):
+    """One model of `template` served in precision `mode` at full width
+    (seeded random weights, bf16) and the canonical batch."""
+    from arbius_tpu_torch.node import MiningConfig, ModelConfig
+    from arbius_tpu_torch.node.config import PrecisionConfig
+
+    return MiningConfig(
+        canonical_batch=CANONICAL_BATCH,
+        precision=PrecisionConfig(templates={template: mode}),
+        models=(ModelConfig(id=mid, template=template,
+                            weights_dtype="bfloat16", golden=golden),))
+
+
+def resident_build(torch, cfg):
+    """(the registry `cfg` builds on the card, the bytes allocated before
+    the build, the bytes its one model leaves allocated: the resident
+    weights)."""
+    from arbius_tpu_torch.node import build_registry
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    registry = build_registry(cfg, device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    return registry, base, torch.cuda.memory_allocated() - base
+
+
+def chunk_peak(torch, pipe, template: str) -> tuple[int, int]:
+    """(peak bytes allocated over one canonical batch of `template`
+    straight through its pipeline at PEAK_STEPS steps, the bytes
+    allocated once its output is dropped)."""
+    prompts = [f"a lighthouse, memory study {i}"
+               for i in range(CANONICAL_BATCH)]
+    seeds = list(range(1, CANONICAL_BATCH + 1))
+    if template == "textgen":
+        args = (prompts, seeds)
+        kw = dict(prompt_bucket=32, decode_bucket=16)
+    else:
+        args = (prompts, [""] * CANONICAL_BATCH
+                if template == "anythingv3" else None, seeds)
+        kw = {"anythingv3": dict(width=SIZE, height=SIZE,
+                                 scheduler=SCHEDULER),
+              "kandinsky2": dict(width=K2_SIZE, height=K2_SIZE),
+              "damo": dict(num_frames=VIDEO_FRAMES, width=VIDEO_SIZE,
+                           height=VIDEO_SIZE)}[template]
+        kw["num_inference_steps"] = PEAK_STEPS
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = pipe.generate(*args, as_device=True, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    return peak, torch.cuda.memory_allocated()
+
+
+def dequant_cost(torch, quantized) -> dict:
+    """The dequantization a quantized bucket program begins with, alone
+    on the card: device ms between CUDA events (median of 5 runs), and
+    the kernels and busy ms of one run traced by torch.profiler."""
+    import tempfile
+
+    times = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        with quantized.dequantized():
+            end.record()
+            torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with quantized.dequantized():
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as work:
+        path = pathlib.Path(work) / "dequant.json"
+        prof.export_chrome_trace(str(path))
+        trace = device_trace_summary(json.loads(path.read_text()))
+    return {"ms": statistics.median(times), "kernels": trace["kernels"],
+            "busy_ms": trace["busy_ms"], "leaves": len(quantized.leaves)}
+
+
+def full_width_bytes(quantized) -> int:
+    """Bytes of the quantized leaves in their parameters' dtypes."""
+    return sum(leaf["qv"].numel() * p.element_size()
+               for p, leaf, _ in quantized.leaves)
+
+
+def precision_node(torch, flash, template: str, mode: str,
+                   inputs: list[dict], want: dict) -> dict:
+    """A MinerNode on LocalChain serving `template` in `mode`, booted with
+    the committed golden (re-recorded where the build differs): its
+    self-test launches the flash kernels of one chunk (`want`); it mines
+    `inputs` from TaskSubmitted through claim, each chunk launching
+    `want`; the cost model's rows and `arbius_precision_models` carry the
+    mode; no full-width weights outlive a chunk. Returns the model, the
+    mined items and CIDs, launches, resident bytes and times."""
+    from arbius_tpu_torch.chain import WAD
+    from arbius_tpu_torch.cli import build_info
+    from arbius_tpu_torch.l0 import taskid2seed
+    from arbius_tpu_torch.node import LocalChain, MinerNode
+    from arbius_tpu_torch.node.solver import bucket_key
+    from arbius_tpu_torch.templates import hydrate_input
+
+    path = precision_golden_file(template, mode)
+    committed = json.loads(
+        (pathlib.Path(__file__).resolve().parent / path).read_text())
+    raw = PRECISION_GOLDENS[template, mode]
+    check(committed["golden"]["input"] == raw
+          and committed["golden"]["seed"] == GOLDEN_SEED
+          and committed["canonical_batch"] == CANONICAL_BATCH
+          and committed["template"] == template
+          and committed["precision"] == mode
+          and committed["weights_dtype"] == "bfloat16",
+          f"{path} is not the vector phase 12 boots with")
+    build_now = {k: build_info("cuda").get(k) for k in BUILD_FIELDS}
+    built = {k: committed["build"].get(k) for k in BUILD_FIELDS}
+    if build_now == built:
+        golden, source = committed["golden"], path
+    else:
+        golden = record_precision_golden(torch, template, mode)["golden"]
+        source = (f"re-recorded here into chiprun_out/goldens/: this build "
+                  f"{build_now} is not {built}")
+
+    miner, user = "0x" + "ac" * 20, "0x" + "02" * 20
+    tok, eng, mid, submit = template_world(inputs, miner, user, template)
+    chain = LocalChain(eng, miner)
+    chain.validator_deposit(100 * WAD)
+    cfg = precision_config(template, mode, mid, golden)
+    registry, base, resident = resident_build(torch, cfg)
+    model = registry.get(mid)
+    quantized = model.runner.pipeline.quantized
+    check(quantized is not None and model.runner.pipeline.precision == mode,
+          f"{template} {mode}: the pipeline holds full-width weights")
+    node = MinerNode(chain, cfg, registry)
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    node.boot()
+    boot_s = time.perf_counter() - t0
+    check(flash.flash_attention.launches_by_route == want,
+          f"{template} {mode} self-test launches "
+          f"{flash.flash_attention.launches_by_route}, expected {want}")
+    tids = submit()
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    while node.tick():
+        pass
+    mine_s = time.perf_counter() - t0
+    launches = dict(flash.flash_attention.launches_by_route)
+    items = []
+    for raw_i, tid in zip(inputs, tids):
+        hydrated = hydrate_input(dict(raw_i), model.template)
+        prepare = getattr(model.runner, "prepare_hydrated", None)
+        items.append((prepare(hydrated) if prepare else hydrated,
+                      taskid2seed(tid)))
+    keys = [bucket_key(mid, h, mode) for h, _ in items]
+    n_chunks = sum(-(-keys.count(k) // CANONICAL_BATCH) for k in set(keys))
+    check(node.db.failed_jobs() == [],
+          f"{template} {mode} node: failed jobs {node.db.failed_jobs()}")
+    check(launches == {r: n * n_chunks for r, n in want.items()},
+          f"{template} {mode} node: launches {launches}, expected {want} x "
+          f"{n_chunks}")
+    onchain = []
+    for tid in tids:
+        sol = eng.solutions.get(bytes.fromhex(tid[2:]))
+        check(sol is not None and sol.validator == miner,
+              f"{template} {mode} task {tid} not solved by the miner: {sol}")
+        cid = "0x" + sol.cid.hex()
+        check(chain.generate_commitment(tid, cid) in eng.commitments,
+              f"{template} {mode} task {tid}: no commitment matching {cid}")
+        onchain.append(cid)
+    bal0 = tok.balance_of(miner)
+    eng.advance_time(eng.min_claim_solution_time
+                     + cfg.claim_delay_buffer + 1)
+    while node.tick():
+        pass
+    rise = tok.balance_of(miner) - bal0
+    check(node.metrics.solutions_claimed == len(tids)
+          and rise == len(tids) * TASK_FEE * WAD * 9 // 10,
+          f"{template} {mode} node: claimed "
+          f"{node.metrics.solutions_claimed} of {len(tids)}, +{rise}")
+    modes = {r.mode for r in node.costmodel.rows.values()}
+    served = _metric_sum(node.obs.registry.render(),
+                         "arbius_precision_models", mode=mode)
+    check(modes == {mode} and served == 1
+          and all(k[6] == mode for k in
+                  {bucket_key(mid, h, node.solve_mode(mid))
+                   for h, _ in items}),
+          f"{template} {mode} node: cost rows {modes}, "
+          f"arbius_precision_models {served}")
+    infer = sum(node.metrics.stage_seconds["infer"])
+    node.close()
+    del node
+    gc.collect()
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - base - resident
+    full = full_width_bytes(quantized)
+    check(quantized.emptied() and kept < max(full // 2, KEPT_BYTES),
+          f"{template} {mode}: {kept} bytes beyond the resident weights "
+          f"after mining (full width {full})")
+    print(f"precision {template} {mode}: node booted with golden "
+          f"{golden['cid']} ({source}), self-test passed in {boot_s:.2f} s; "
+          f"mined {len(tids)} tasks in {len(set(keys))} buckets, "
+          f"{n_chunks} chunks,"
+          f" {mine_s:.2f} s host time from the first tick to the last "
+          f"reveal (infer {infer:.3f} s); claimed {len(tids)}, "
+          f"+{rise / WAD:g} AIUS; cost rows and arbius_precision_models "
+          f"carry {mode}; flash launches {launches}; allocated beyond the "
+          f"resident weights after mining {kept / (1 << 20):.1f} MiB "
+          f"(full width {full / (1 << 20):.1f} MiB)", flush=True)
+    return {"model": model, "registry": registry, "items": items,
+            "golden": golden, "onchain": onchain, "launches": launches,
+            "base": base,
+            "resident": resident,
+            "kept": kept, "full": full, "infer_s": infer,
+            "n_chunks": n_chunks}
+
+
+def phase_precision(torch, flash) -> dict:
+    """Phase 12: the int8 and fp8 precision modes at full width. The tiny
+    float32 int8 model on the card against the CPU; anythingv3 in int8
+    and fp8 mined through a node booted with each committed golden, then
+    `precision_anythingv3`'s fresh pipelines beside bf16 (CIDs, p50 and
+    sol/h); kandinsky2 (768x768, 50 steps), damo (16 frames at 256x256,
+    50 steps) and textgen in int8, each solved at its golden input by its
+    node's self-test and mining six tasks (kandinsky2 and damo four)
+    through claim; each mode's golden differs from bf16's at the same
+    input; for each family and mode the resident weight bytes after the
+    build and the peak over a PEAK_STEPS chunk (int8 resident below
+    bf16's), and the dequantization's kernels and device ms. Every chunk
+    launches the flash kernels of its bf16 twin. Returns the flash
+    launches of the nodes' mining, summed."""
+    from arbius_tpu_torch.cli import record_golden
+    from arbius_tpu_torch.l0 import taskid2seed
+    from arbius_tpu_torch.templates import hydrate_input, load_template
+    from arbius_tpu_torch.utils import card_info
+
+    card = card_info()
+    t_phase = time.perf_counter()
+    phase_small_reference(torch, "int8")
+    gib = 1 << 30
+    total = dict.fromkeys(flash.SOURCES, 0)
+    memory, dequant, separated = {}, {}, {}
+
+    def measure(template, mode, pipe, base, resident):
+        # the chunk's peak above what the process held before the build
+        peak, _ = chunk_peak(torch, pipe, template)
+        memory[template, mode] = {"resident": resident,
+                                  "resident_gib": resident / gib,
+                                  "peak_gib": (peak - base) / gib}
+        if pipe.quantized is not None:
+            dequant[template, mode] = dequant_cost(torch, pipe.quantized)
+
+    # each family's tasks and the flash launches of one of its chunks
+    families = {
+        "anythingv3": ([h for _, h, _ in tasks(
+            load_template("anythingv3"), hydrate_input, taskid2seed)],
+            expected_launches(torch, flash)),
+        "kandinsky2": (k2_inputs()[:CANONICAL_BATCH], expected_launches(
+            torch, flash, movq_attention_shapes(K2_SIZE, K2_SIZE))),
+        "damo": (video_inputs(CANONICAL_BATCH),
+                 expected_launches(torch, flash, DAMO_SHAPES)),
+        "textgen": (textgen_inputs(), dict.fromkeys(flash.SOURCES, 0))}
+    root = pathlib.Path(__file__).resolve().parent
+    for template in dict.fromkeys(t for t, _ in PRECISION_GOLDENS):
+        inputs, want = families[template]
+        modes = [m for t, m in PRECISION_GOLDENS if t == template]
+        registry, base, resident = resident_build(
+            torch, precision_config(template, "bf16"))
+        bf16 = registry.get("0x" + "00" * 32)
+        measure(template, "bf16", bf16.runner.pipeline, base, resident)
+        mined = {}
+        for mode in modes:
+            node = precision_node(torch, flash, template, mode, inputs, want)
+            for r, n in node["launches"].items():
+                total[r] += n
+            mined[mode] = {k: node[k] for k in ("items", "onchain")}
+            measure(template, mode, node["model"].runner.pipeline,
+                    node["base"], node["resident"])
+            check(node["resident"] < memory[template, "bf16"]["resident"],
+                  f"{template} {mode}: resident {node['resident']} bytes, "
+                  f"not below bf16's")
+            # the mode is another determinism class: bf16's CID at the
+            # golden's input is not the golden's (the committed bf16
+            # vector where its input is the same, else solved here)
+            raw = PRECISION_GOLDENS[template, mode]
+            bf16_file, bf16_input = BF16_GOLDENS[template]
+            if bf16_input == raw:
+                bf16_cid = json.loads((root / bf16_file).read_text())[
+                    "golden"]["cid"]
+            else:
+                bf16_cid = record_golden(
+                    bf16, raw, GOLDEN_SEED, canonical_batch=CANONICAL_BATCH,
+                    device="cuda")["golden"]["cid"]
+            separated[template, mode] = (node["golden"]["cid"], bf16_cid)
+            check(node["golden"]["cid"] != bf16_cid,
+                  f"{template} {mode}: its golden {node['golden']['cid']} "
+                  f"is bf16's at the same input")
+            del node
+            gc.collect()
+            torch.cuda.empty_cache()
+        if template == "anythingv3":
+            precision_anythingv3(torch, flash, bf16, mined, want, card)
+        del registry, bf16
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(len({g for g, _ in separated.values()}) == len(separated),
+          f"two modes share a golden: {separated}")
+    for (template, mode), (cid, bf16_cid) in separated.items():
+        print(f"precision golden {template} {mode}: {cid}; bf16 at the "
+              f"same input {bf16_cid}", flush=True)
+    for (template, mode), m in memory.items():
+        d = dequant.get((template, mode))
+        cost = (f"; dequantization {d['leaves']} leaves, {d['kernels']} "
+                f"kernels, {d['ms']:.3f} ms between CUDA events, "
+                f"{d['busy_ms']:.3f} ms busy (traced)") if d else ""
+        print(f"precision memory {template} {mode}: resident "
+              f"{m['resident_gib']:.3f} GiB ({m['resident']} bytes) after "
+              f"the build, peak "
+              f"{m['peak_gib']:.3f} GiB over a {PEAK_STEPS}-step chunk "
+              f"(above what was allocated before the build)"
+              f"{cost}; {card}", flush=True)
+    print(f"precision: phase 12 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": total, "memory": memory, "dequant": dequant}
+
+
+def precision_anythingv3(torch, flash, bf16, mined: dict, want: dict,
+                         card: str) -> None:
+    """A fresh anythingv3 pipeline in each mode of `mined` (the nodes'
+    items and on-chain CIDs, by mode) re-solves the six mined tasks in
+    phase 5's chunk groupings, each chunk beside the same chunk on the
+    bf16 model `bf16`, the modes in turn: every int8 and fp8 CID equals
+    the on-chain one, so it holds across pipelines and neighbours, and
+    no two modes share a task's CID. p50 and sol/h per mode, from these
+    paired chunks."""
+    from arbius_tpu_torch.node import solve_cid_batch
+
+    items = mined["int8"]["items"]
+    check(all([s for _, s in m["items"]] == [s for _, s in items]
+              for m in mined.values()),
+          "anythingv3: the modes' nodes mined other seeds")
+    models, registries = {"bf16": bf16}, []
+    for mode in mined:
+        registry, _, _ = resident_build(torch,
+                                        precision_config("anythingv3", mode))
+        registries.append(registry)
+        models[mode] = registry.get("0x" + "00" * 32)
+    groups = ([0, 1, 2, 3], [4, 5], [2, 4, 0, 1])
+    latencies = {mode: [] for mode in models}
+    for idx in groups:
+        cids = {}
+        for mode, model in models.items():
+            flash.reset_launches()
+            t0 = time.perf_counter()
+            again = solve_cid_batch(model, [items[i] for i in idx],
+                                    canonical_batch=CANONICAL_BATCH)
+            latencies[mode].append(time.perf_counter() - t0)
+            check(flash.flash_attention.launches_by_route == want,
+                  f"anythingv3 {mode} chunk {idx}: launches "
+                  f"{flash.flash_attention.launches_by_route}, expected "
+                  f"{want}")
+            cids[mode] = [cid for cid, _ in again]
+            if mode in mined:
+                onchain = mined[mode]["onchain"]
+                for i, cid in zip(idx, cids[mode]):
+                    check(cid == onchain[i], f"anythingv3 {mode} task {i}: "
+                          f"fresh pipeline {cid} != on-chain {onchain[i]} "
+                          f"(chunk {idx})")
+        check(all(len(set(c)) == len(models) for c in zip(*cids.values())),
+              f"anythingv3 chunk {idx}: two modes share a CID")
+    p50 = {mode: statistics.median(x) for mode, x in latencies.items()}
+    print(f"precision anythingv3: fresh int8 and fp8 pipelines, chunks "
+          f"{[list(g) for g in groups]}, each beside bf16: CIDs equal the "
+          f"on-chain ones, no two modes share one; per-batch latency s "
+          + "; ".join(f"{mode} {[round(x, 3) for x in lat]} p50 "
+                      f"{p50[mode]:.3f} s "
+                      f"({CANONICAL_BATCH * 3600 / p50[mode]:.1f} "
+                      f"solutions/h at full batches)"
+                      for mode, lat in latencies.items())
+          + f"; {card}", flush=True)
+    del models, registries
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2716,6 +3200,13 @@ def main() -> int:
     rvm = phase_rvm(torch, flash)
     wall_mark("11 robust_video_matting")
 
+    # -- 12. precision modes --------------------------------------------------
+    precision = phase_precision(torch, flash)
+    check(all(precision["launches"][r] > 0 for r, n in expected.items() if n),
+          f"phase 12 launched {precision['launches']}, not every route of "
+          f"{expected}")
+    wall_mark("12 precision modes")
+
     entries = kernel_entries(flash, buckets, {
         "launches": launches, "launches_node": node_launches,
         "launches_node_run": node_run_launches,
@@ -2726,7 +3217,8 @@ def main() -> int:
         "launches_textgen": textgen["launches"],
         "launches_textgen_node": textgen["launches_node"],
         "launches_rvm": rvm["launches"],
-        "launches_rvm_node": rvm["launches_node"]})
+        "launches_rvm_node": rvm["launches_node"],
+        "launches_precision": precision["launches"]})
     print("phase wall seconds: " + json.dumps(walls), flush=True)
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -283,3 +283,26 @@ def test_conv_is_batch_position_invariant(cuda):
     perm = torch.tensor([2, 3, 0, 1, 6, 7, 4, 5], device=cuda)
     with torch.no_grad():
         assert torch.equal(conv(x[perm]), conv(x)[perm])
+
+
+@pytest.mark.parametrize("precision", ["int8", "fp8"])
+def test_textgen_quantized_graph_equals_eager(cuda, precision):
+    """textgen in int8 and fp8 on the card: the captured graph begins by
+    dequantizing the resident qv and qs into its own memory, and gives
+    the plain loop's tokens bit for bit, every sampler, on a replay
+    after another bucket's graph ran in between; between chunks the
+    eligible parameters hold no full-width storage."""
+    from arbius_tpu_torch.models.textgen import TextGenPipeline
+
+    pipe = TextGenPipeline(device=cuda, precision=precision)
+    pipe.load_params(pipe.init_params(seed=0))
+    prompts, seeds = ["once upon a time", "ab", "x", "arbius"], [1, 2, 3, 4]
+    for sampler in ("greedy", "top_k"):
+        kw = dict(prompt_bucket=32, decode_bucket=16, sampler=sampler)
+        eager = pipe.generate(prompts, seeds, eager=True, **kw)
+        graph = pipe.generate(prompts, seeds, **kw)
+        pipe.generate(prompts, seeds, prompt_bucket=64, decode_bucket=32,
+                      sampler=sampler)
+        again = pipe.generate(prompts, seeds, **kw)
+        assert (graph == eager).all() and (again == eager).all()
+        assert pipe.quantized.emptied()

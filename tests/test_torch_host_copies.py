@@ -79,8 +79,8 @@ CHANGED_TWINS = {
                       "compile cache by default",
     "node/solver.py": "runners hold their pipelines' weights; results "
                       "come back through pinned memory and CUDA events",
-    "node/factory.py": "on a torch device; no mesh, checkpoint, CLIP BPE "
-                       "or precision modes",
+    "node/factory.py": "on a torch device; no mesh, checkpoint or CLIP "
+                       "BPE; the pipeline quantizes as it loads",
     "node/sched.py": "module docstring only: no project history",
 }
 

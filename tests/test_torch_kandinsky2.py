@@ -50,7 +50,9 @@ from arbius_tpu_torch.models.kandinsky2 import (
 from arbius_tpu_torch.models.kandinsky2 import decoder, movq
 from arbius_tpu_torch.models.kandinsky2 import pipeline as tpipeline
 from arbius_tpu_torch.models.sd15 import decode_to_images, text_encoder
+from arbius_tpu_torch.models.sd15.bridge import quant_layout
 from arbius_tpu_torch.node.factory import tiny_byte_tokenizer
+from test_torch_quant import check_dequantized_weights, check_output_axes
 
 F32_TOL = 5e-5
 PROMPTS = ["a lighthouse at dusk", "b"]
@@ -140,6 +142,24 @@ def _apply_both(jmod, tmod, args, nchw=True, **kw):
     if nchw and got.dim() == 4:
         got = got.permute(0, 2, 3, 1)
     return got.numpy(), want
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_dequantized_weights_equal_reference_bit_for_bit(jax_tree, port_f32,
+                                                         mode):
+    """kandinsky2 in int8 and fp8 (tests/test_torch_quant.py (a)), on this
+    module's reference tree: the reference's quantize_params and
+    dequantize_tree through the bridge equal the port's dequantized
+    state bit for bit, over the same quantized leaves."""
+    check_dequantized_weights(jax_tree, quant_layout(port_f32.models), mode)
+
+
+def test_quant_output_axis_is_where_convert_puts_the_reference_last_axis(
+        jax_tree, port_f32):
+    layout = quant_layout(port_f32.models)
+    check_output_axes(jax_tree, layout)
+    # the text tower's DenseGeneral bias [H, D] is scaled per D
+    assert layout["text.layer_0.attn.query.bias"].axis == 1
 
 
 @pytest.mark.parametrize("resample", ["none", "down", "up"])

@@ -712,6 +712,96 @@ def test_boot_self_test_with_recorded_golden(registry, corrupt):
         _mine(registry, [0], golden=(g["input"], g["seed"], cid))
 
 
+@pytest.fixture
+def one_torch_thread():
+    """A test's tiny torch ops on one thread: with the suite's workers
+    sharing the host's cores, torch's per-op thread pool otherwise waits
+    on oversubscribed cores at every small op."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_int8_anythingv3_mines_in_its_mode(params, one_torch_thread):
+    """A tiny anythingv3 served in int8 on LocalChain: the registry built
+    from a MiningConfig whose precision names int8 holds quantized
+    weights; a golden recorded on it passes the boot self-test; two
+    tasks mine and claim with CIDs equal to the runner's solve and unlike
+    the bf16 model's; the bucket key, the cost model's row (as fitted
+    and as persisted) and `arbius_precision_models` carry int8."""
+    from arbius_tpu_torch.cli import record_golden
+    from arbius_tpu_torch.node import solve_cid_batch
+    from arbius_tpu_torch.node.config import PrecisionConfig
+    from arbius_tpu_torch.node.solver import bucket_key
+
+    P = _pkg("arbius_tpu_torch")
+    WAD = P.WAD
+    tok = P.TokenLedger()
+    eng = P.Engine(tok, start_time=10_000)
+    tok.mint(P.Engine.ADDRESS, 600_000 * WAD)
+    for a in (MINER, USER):
+        tok.mint(a, 1_000 * WAD)
+        tok.approve(a, P.Engine.ADDRESS, 10**30)
+    mid_b = eng.register_model(USER, MODEL_ADDR, 0, b'{"meta":{}}')
+    mid = "0x" + mid_b.hex()
+    precision = PrecisionConfig(templates={"anythingv3": "int8"})
+
+    def config(golden=None):
+        return _config(P, canonical_batch=CANONICAL, precision=precision,
+                       models=(P.node.ModelConfig(
+                           id=mid, template="anythingv3", tiny=True,
+                           golden=golden),))
+
+    raw = {"prompt": "arbius test cat", "negative_prompt": "",
+           "width": 128, "height": 128, "num_inference_steps": 2}
+    rec = record_golden(P.node.build_registry(
+        config(), device="cpu", params=params).get(mid), raw, 1337,
+        canonical_batch=CANONICAL, device="cpu")
+    cfg = config(rec["golden"])
+    registry = P.node.build_registry(cfg, device="cpu", params=params)
+    model = registry.get(mid)
+    assert model.runner.pipeline.precision == "int8"
+    assert model.runner.pipeline.quantized.leaves
+    chain = P.node.LocalChain(eng, MINER)
+    chain.validator_deposit(100 * WAD)
+    node = P.node.MinerNode(chain, cfg, registry)
+    node.boot()    # the self-test solves the int8 golden
+    tids = ["0x" + eng.submit_task(USER, 0, USER, mid_b, WAD,
+                                   json.dumps(_task(i)).encode()).hex()
+            for i in (0, 1)]
+    while node.tick():
+        pass
+    eng.advance_time(2000 + 121)
+    while node.tick():
+        pass
+    assert node.metrics.solutions_claimed == 2
+    items = [(P.hydrate_input(_task(i), model.template), P.taskid2seed(t))
+             for i, t in zip((0, 1), tids)]
+    onchain = ["0x" + eng.solutions[bytes.fromhex(t[2:])].cid.hex()
+               for t in tids]
+    assert [c for c, _ in solve_cid_batch(
+        model, items, canonical_batch=CANONICAL)] == onchain
+    bf16_model = P.node.build_registry(_config(P, models=(
+        P.node.ModelConfig(id=mid, template="anythingv3", tiny=True),)),
+        device="cpu", params=params).get(mid)
+    assert bf16_model.runner.pipeline.quantized is None
+    bf16 = solve_cid_batch(bf16_model, items, canonical_batch=CANONICAL)
+    assert all(a != b for (a, _), b in zip(bf16, onchain))
+
+    key = bucket_key(mid, items[0][0], node.solve_mode(mid))
+    assert node.solve_mode(mid) == "int8" and key[6] == "int8"
+    assert model.runner.cache_tag(items[0][0], CANONICAL).endswith(".int8")
+    assert {r.mode for r in node.costmodel.rows.values()} == {"int8"}
+    assert {row[3] for row in node.db.load_cost_rows()} == {"int8"}
+    text = node.obs.registry.render()
+    assert 'arbius_precision_models{mode="int8"} 1' in text
+    assert 'arbius_precision_models{mode="bf16"} 0' in text
+    node.close()
+
+
 # -- settings the port refuses ---------------------------------------------
 
 @pytest.mark.parametrize("overrides,item", [
@@ -721,8 +811,13 @@ def test_boot_self_test_with_recorded_golden(registry, corrupt):
     ({"perfscope": {"enabled": True}}, 12),
     ({"alerts": {"enabled": True}}, 12),
     ({"fleet": {"enabled": True}}, 12),
-    ({"precision": {"default": "int8"}}, 6),
-    ({"precision": {"templates": {"anythingv3": "fp8"}}}, 6),
+    ({"precision": {"default": "int8"},
+      "models": [{"id": "0x" + "cd" * 32, "template": "textgen"}]}, None),
+    ({"precision": {"templates": {"textgen": "fp8", "anythingv3": "fp8"}},
+      "models": [{"id": "0x" + "cd" * 32, "template": "textgen"}]}, None),
+    ({"precision": {"default": "int8"},
+      "models": [{"id": "0x" + "cf" * 32,
+                  "template": "robust_video_matting"}]}, "bf16"),
     ({"models": [{"id": "0x" + "cd" * 32, "template": "textgen"}]}, None),
     ({"mesh": {"sp": 2}, "models": [{"id": "0x" + "ce" * 32,
                                      "template": "damo",
@@ -730,19 +825,32 @@ def test_boot_self_test_with_recorded_golden(registry, corrupt):
 ], ids=lambda v: json.dumps(v) if isinstance(v, dict) else str(v))
 def test_unported_settings_refused_at_boot(overrides, item):
     """Each setting whose module the port lacks raises BootError naming
-    its ROADMAP item; a setting once refused whose family is ported now
-    (item None: a full-width textgen model) boots and solves."""
+    its ROADMAP item; a setting once refused whose module is ported now
+    (item None: a full-width textgen model, in bf16, int8 and fp8) boots
+    and solves in its mode. robust_video_matting in int8 (item "bf16")
+    is refused by the factory with the reference's sentence."""
     from arbius_tpu_torch.node import BootError, load_config
 
     cfg = load_config(overrides)
     P = _pkg("arbius_tpu_torch")
     eng = P.Engine(P.TokenLedger(), start_time=0)
+    if item == "bf16":
+        with pytest.raises(P.node.ConfigError, match=(
+                "precision mode 'int8' is not shipped for template "
+                "robust_video_matting — the matting family serves bf16 "
+                "only \\(docs/quantization.md\\)")):
+            P.node.build_registry(cfg, device="cpu",
+                                  resolve_file=lambda cid: None)
+        return
     if item is None:
         [m] = cfg.models
         registry = P.node.build_registry(cfg, device="cpu")
         node = P.node.MinerNode(P.node.LocalChain(eng, MINER), cfg, registry)
         node.boot()
         model = registry.get(m.id)
+        mode = cfg.precision.mode_for("textgen")
+        assert model.runner.pipeline.precision == mode
+        assert (model.runner.pipeline.quantized is None) == (mode == "bf16")
         hydrated = model.runner.prepare_hydrated(P.hydrate_input(
             {"prompt": "arbius test cat"}, model.template))
         [(cid, files)] = P.node.solve_cid_batch(
@@ -842,16 +950,25 @@ def test_kandinsky2_boots_with_recorded_golden_and_mines():
     ({"model": {"checkpoint": "/ckpts/kandinsky2"}}, 3),
     ({"model": {"tokenizer": "clip_bpe", "vocab_path": "vocab.json",
                 "merges_path": "merges.txt"}}, 3),
-    ({"precision": {"default": "int8"}}, 6),
-    ({"precision": {"templates": {"kandinsky2": "fp8"}}}, 6),
+    ({"precision": {"default": "int8"}}, None),
+    ({"precision": {"templates": {"kandinsky2": "fp8"}}}, None),
 ], ids=lambda v: json.dumps(v) if isinstance(v, dict) else str(v))
 def test_registry_refuses_kandinsky2_unported_settings(overrides, item):
+    """Checkpoints and the CLIP BPE tokenizer wait for item 3; int8 and
+    fp8 (item None) build, with the weights held quantized."""
     P = _pkg("arbius_tpu_torch")
     model = {"id": "0x" + "00" * 32, "template": "kandinsky2", "tiny": True,
              **overrides.get("model", {})}
     cfg = P.node.load_config({"compile_cache_dir": None, "models": [model],
                               **{k: v for k, v in overrides.items()
                                  if k != "model"}})
+    if item is None:
+        pipe = P.node.build_registry(cfg, device="cpu").get(
+            model["id"]).runner.pipeline
+        mode = cfg.precision.mode_for("kandinsky2")
+        assert pipe.precision == mode and pipe.quantized.leaves
+        assert pipe.bucket_tag(4, 768, 768, 50, "DDIM").endswith(f".{mode}")
+        return
     with pytest.raises(P.node.ConfigError, match=f"item {item}\\)"):
         P.node.build_registry(cfg, device="cpu")
 

@@ -39,7 +39,9 @@ from arbius_tpu_torch.models.sd15 import (
     params_from_jax,
 )
 from arbius_tpu_torch.models.sd15 import pipeline as tpipeline
+from arbius_tpu_torch.models.sd15.bridge import quant_layout
 from arbius_tpu_torch.node.factory import tiny_byte_tokenizer
+from test_torch_quant import check_dequantized_weights, check_output_axes
 
 F32_TOL = 5e-5
 PROMPTS = ["a lighthouse at dusk", "b"]
@@ -187,11 +189,18 @@ def test_sinusoidal_embedding_matches():
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
 
 
-def _float_pixels(monkeypatch, jax_tree, port, dtype, scheduler):
+def _float_pixels(monkeypatch, jax_tree, port, dtype, scheduler,
+                  precision="bf16"):
     """Both pipelines' float pixels, with `decode_to_images` patched to
-    the identity for this call only."""
+    the identity for this call only. In int8 or fp8 the reference runs
+    its quantized program on `quantize_params(jax_tree)`."""
     jpipe = JPipeline(_config(JConfig, dtype),
-                      tokenizer=jax_tiny_tokenizer(JConfig.tiny().text))
+                      tokenizer=jax_tiny_tokenizer(JConfig.tiny().text),
+                      precision=precision)
+    if precision != "bf16":
+        from arbius_tpu.quant import quantize_params
+
+        jax_tree = quantize_params(jax_tree, precision)
     kw = dict(width=64, height=64, num_inference_steps=2,
               guidance_scale=GUIDANCE, scheduler=scheduler)
     with monkeypatch.context() as m:
@@ -216,6 +225,47 @@ def test_generate_matches_f32(monkeypatch, jax_tree, port_f32, scheduler):
     print(f"{scheduler}: uint8 differs on {(diff > 0).mean():.6f} of "
           f"pixels, max {diff.max()}")
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("precision", ["int8", "fp8"])
+def test_generate_quantized_matches_reference(monkeypatch, jax_tree,
+                                              precision):
+    """anythingv3 in int8 and fp8 (tiny, float32 compute): the port's
+    pipeline quantizes the bridged weights at load and dequantizes them
+    at the start of the bucket program; the reference runs its quantized
+    program. The float32 generate's tolerances hold (1e-4 on float
+    pixels; uint8 one level on at most 0.1% of pixels)."""
+    port = SD15Pipeline(_config(SD15Config, "float32"),
+                        tokenizer=tiny_byte_tokenizer(SD15Config.tiny().text),
+                        device="cpu", precision=precision)
+    port.load_params(params_from_jax(jax_tree))
+    assert port.quantized is not None
+    got, want = _float_pixels(monkeypatch, jax_tree, port, "float32",
+                              "DPMSolverMultistep", precision)
+    assert got.shape == want.shape == (2, 64, 64, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    ju = np.asarray(jax_decode(jnp.asarray(want))).astype(int)
+    tu = decode_to_images(torch.from_numpy(got)).numpy().astype(int)
+    diff = np.abs(ju - tu)
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_dequantized_weights_equal_reference_bit_for_bit(jax_tree, port_f32,
+                                                         mode):
+    """anythingv3 (sd15) in int8 and fp8 (tests/test_torch_quant.py (a)),
+    on this module's reference tree: the reference's quantize_params and
+    dequantize_tree through the bridge equal the port's dequantized
+    state bit for bit, over the same quantized leaves."""
+    check_dequantized_weights(jax_tree, quant_layout(port_f32.models), mode)
+
+
+def test_quant_output_axis_is_where_convert_puts_the_reference_last_axis(
+        jax_tree, port_f32):
+    layout = quant_layout(port_f32.models)
+    check_output_axes(jax_tree, layout)
+    # the text tower's DenseGeneral bias [H, D] is scaled per D
+    assert layout["text.layer_0.attn.query.bias"].axis == 1
 
 
 def test_generate_bf16_looser(monkeypatch, jax_tree):

@@ -32,6 +32,7 @@ from arbius_tpu.models.video import Text2VideoPipeline as JPipeline
 from arbius_tpu.models.video import pipeline as jpipeline
 from arbius_tpu.node.factory import tiny_byte_tokenizer as jax_tiny_tokenizer
 from arbius_tpu_torch.models.sd15 import decode_to_images
+from arbius_tpu_torch.models.sd15.bridge import quant_layout
 from arbius_tpu_torch.models.video import (
     Text2VideoConfig,
     Text2VideoPipeline,
@@ -39,6 +40,7 @@ from arbius_tpu_torch.models.video import (
 )
 from arbius_tpu_torch.models.video import pipeline as tpipeline
 from arbius_tpu_torch.node.factory import tiny_byte_tokenizer
+from test_torch_quant import check_dequantized_weights, check_output_axes
 from test_torch_video_modules import fill
 
 PROMPTS = ["a rocket over the sea", "b"]
@@ -169,3 +171,26 @@ def test_generate_checks_inputs(tree):
         Text2VideoPipeline(dataclasses.replace(
             Text2VideoConfig.tiny(), text=Text2VideoConfig().text),
             device="cpu")
+
+
+@pytest.fixture(scope="module")
+def port_tree(tree):
+    return _port("float32", tree)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_dequantized_weights_equal_reference_bit_for_bit(tree, port_tree,
+                                                         mode):
+    """text-to-video in int8 and fp8 (tests/test_torch_quant.py (a)), on
+    this module's reference tree: the reference's quantize_params and
+    dequantize_tree through the bridge equal the port's dequantized
+    state bit for bit, over the same quantized leaves."""
+    check_dequantized_weights(tree, quant_layout(port_tree.models), mode)
+
+
+def test_quant_output_axis_is_where_convert_puts_the_reference_last_axis(
+        tree, port_tree):
+    layout = quant_layout(port_tree.models)
+    check_output_axes(tree, layout)
+    # the text tower's DenseGeneral bias [H, D] is scaled per D
+    assert layout["text.layer_0.attn.query.bias"].axis == 1
