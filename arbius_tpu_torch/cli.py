@@ -1,4 +1,5 @@
-"""arbius-tpu port CLI — the twins of arbius_tpu/cli.py's node commands.
+"""arbius-tpu port CLI — the twins of arbius_tpu/cli.py's node and ops
+commands.
 
   demo-mine      end-to-end local mine: in-process chain + SD-1.5,
                  task -> solve -> commit -> reveal -> claim, full width
@@ -18,10 +19,14 @@ Ops verbs against an endpoint (--deployment + --key, signed txs):
   task-status       task/solution view
   claim             claimSolution
   balance           token balance
-
-The reference's other ops verbs (transfer, decode-tx, treasury-withdraw,
-engine-admin, task-retract, signal-support, timetravel, governance) are
-not ported yet (ROADMAP queue 1 item 5).
+  transfer          signed ERC20 transfer
+  task-retract      retractTask: the owner reclaims an unsolved task's fee
+  signal-support    validator model-support signal
+  decode-tx         decode a raw signed EIP-1559 transaction (offline)
+  treasury-withdraw sweep accrued protocol fees to the treasury
+  engine-admin      owner/pauser-gated engine admin calls
+  timetravel        devnet time and blocks
+  governance ...    delegate/propose/vote/queue/execute/cancel/proposal
 
 Run: python -m arbius_tpu_torch.cli <command> [...args]
 """
@@ -52,6 +57,31 @@ def _wad(amount: str) -> int:
     if wad != int(wad):
         raise SystemExit(f"{amount!r} has more than 18 decimal places")
     return int(wad)
+
+
+def _abi_cli_value(typ: str, arg: str):
+    """CLI string literal → abi_encode-ready value for one static type."""
+    if typ.startswith(("uint", "int")):
+        try:
+            return int(arg, 0)
+        except ValueError:
+            raise SystemExit(f"bad integer literal {arg!r}")
+    if typ == "bool":
+        low = arg.lower()
+        if low in ("true", "1"):
+            return 1
+        if low in ("false", "0"):
+            return 0
+        raise SystemExit(f"bad bool literal {arg!r}")
+    return arg
+
+
+def _governor_address(dep) -> str:
+    if dep.governor_address:
+        return dep.governor_address
+    from arbius_tpu_torch.chain.devnet import GOVERNOR_ADDRESS
+
+    return GOVERNOR_ADDRESS
 
 
 def build_info(device) -> dict:
@@ -401,6 +431,198 @@ def cmd_balance(args) -> int:
     return 0
 
 
+def cmd_transfer(args) -> int:
+    """mining:transfer parity (contract/tasks/index.ts:76-87): signed
+    ERC20 transfer to an address."""
+    client, dep = _rpc_client(args)
+    amount = _wad(args.amount)
+    txhash = client.send_to(dep.token_address, "transfer(address,uint256)",
+                            ["address", "uint256"], [args.to, amount])
+    print(json.dumps({"txhash": txhash, "to": args.to,
+                      "amount_wad": str(amount)}))
+    return 0
+
+
+def cmd_decode_tx(args) -> int:
+    """decode-tx parity (contract/tasks/index.ts:24-34): parse a raw
+    signed EIP-1559 transaction and recover its sender."""
+    from arbius_tpu_torch.chain.rlp import decode_signed_eip1559
+
+    raw = bytes.fromhex(args.raw.removeprefix("0x"))
+    d = decode_signed_eip1559(raw)
+    data = d.tx.data or b""
+    print(json.dumps({
+        "from": d.sender, "to": d.tx.to, "nonce": d.tx.nonce,
+        "chain_id": d.tx.chain_id, "value": str(d.tx.value),
+        "gas_limit": d.tx.gas_limit,
+        "max_fee_per_gas": str(d.tx.max_fee_per_gas),
+        "selector": "0x" + data[:4].hex() if len(data) >= 4 else None,
+        "data": "0x" + data.hex(),
+        "tx_hash": "0x" + d.tx_hash.hex(),
+    }))
+    return 0
+
+
+def cmd_treasury_withdraw(args) -> int:
+    """treasury:withdrawAccruedFees parity (contract/tasks/index.ts) —
+    sweep accrued protocol fees to the treasury address."""
+    from arbius_tpu_torch.l0.abi import abi_decode
+
+    client, dep = _rpc_client(args)
+    # report the accrued amount OBSERVED BEFORE the send: the tx may
+    # still be pending on a real endpoint (no receipt wait here), so a
+    # post-send read would race the sweep and other accruals
+    accrued = abi_decode(["uint256"], client.eth_call("accruedFees()",
+                                                      [], []))[0]
+    txhash = client.send("withdrawAccruedFees", [])
+    print(json.dumps({"txhash": txhash,
+                      "accrued_wad_before": str(accrued)}))
+    return 0
+
+
+def cmd_engine_admin(args) -> int:
+    """engine:pause / admin:setVersion parity — owner/pauser-gated direct
+    admin calls (EngineV1.sol:266-306; governance reaches the same
+    surface via the timelock)."""
+    client, dep = _rpc_client(args)
+    if args.admin_verb == "pause":
+        paused = bool(_abi_cli_value("bool", args.value))
+        txhash = client.send_to(dep.engine_address, "setPaused(bool)",
+                                ["bool"], [int(paused)])
+        print(json.dumps({"txhash": txhash, "paused": paused}))
+    elif args.admin_verb == "set-version":
+        version = _abi_cli_value("uint256", args.value)
+        txhash = client.send_to(dep.engine_address, "setVersion(uint256)",
+                                ["uint256"], [version])
+        print(json.dumps({"txhash": txhash, "version": version}))
+    elif args.admin_verb == "transfer-pauser":
+        if not re.fullmatch(r"0x[0-9a-fA-F]{40}", args.value):
+            raise SystemExit(f"bad address {args.value!r}")
+        txhash = client.send_to(dep.engine_address,
+                                "transferPauser(address)", ["address"],
+                                [args.value])
+        print(json.dumps({"txhash": txhash, "pauser": args.value}))
+    else:  # transfer-ownership
+        if not re.fullmatch(r"0x[0-9a-fA-F]{40}", args.value):
+            raise SystemExit(f"bad address {args.value!r}")
+        txhash = client.send_to(dep.engine_address,
+                                "transferOwnership(address)", ["address"],
+                                [args.value])
+        print(json.dumps({"txhash": txhash, "owner": args.value}))
+    return 0
+
+
+def cmd_task_retract(args) -> int:
+    """retractTask: the task owner reclaims the fee (minus retraction
+    cut) after the wait period, while unsolved (EngineV1.sol:718-736)."""
+    client, dep = _rpc_client(args)
+    txhash = client.send("retractTask", [args.taskid])
+    print(json.dumps({"txhash": txhash, "taskid": args.taskid}))
+    return 0
+
+
+def cmd_signal_support(args) -> int:
+    """mining:signalSupport parity (contract/tasks/index.ts:96-103):
+    validator-gated, event-only model-support signal for indexers."""
+    client, dep = _rpc_client(args)
+    support = bool(_abi_cli_value("bool", args.support))
+    txhash = client.send("signalSupport", [args.model, int(support)])
+    print(json.dumps({"txhash": txhash, "model": args.model,
+                      "support": support}))
+    return 0
+
+
+def cmd_timetravel(args) -> int:
+    """timetravel/mine parity (contract/tasks/index.ts:36-47) against a
+    devnet endpoint: advance chain seconds and/or mine blocks."""
+    from arbius_tpu_torch.chain.rpc_client import JsonRpcTransport
+    from arbius_tpu_torch.node.config import load_deployment
+
+    dep = load_deployment(open(args.deployment).read())
+    t = JsonRpcTransport(dep.rpc_url)
+    if args.seconds:
+        t.request("evm_increaseTime", [args.seconds])
+    if args.blocks:
+        t.request("hardhat_mine", [hex(args.blocks)])
+    block = int(t.request("eth_blockNumber", []), 16)
+    print(json.dumps({"block": block}))
+    return 0
+
+
+def cmd_governance(args) -> int:
+    """governance:{delegate,propose,vote,queue,execute,proposal} parity
+    (contract/tasks/index.ts:234-380) against the devnet governor."""
+    from arbius_tpu_torch.l0.abi import abi_decode
+    from arbius_tpu_torch.chain.rpc_client import call_data
+
+    client, dep = _rpc_client(args)
+    gov = _governor_address(dep)
+    verb = args.gov_verb
+    if verb == "delegate":
+        to = args.to or client.wallet.address
+        txhash = client.send_to(dep.token_address, "delegate(address)",
+                                ["address"], [to])
+        print(json.dumps({"txhash": txhash, "delegatee": to}))
+        return 0
+    if verb == "propose":
+        # arg types come from the --fn signature itself (the selector is
+        # derived from the same string, so they can never disagree)
+        m = re.fullmatch(r"[A-Za-z_]\w*\(([^()]*)\)", args.gov_fn)
+        if m is None:
+            raise SystemExit(f"bad function signature {args.gov_fn!r}")
+        types = [t for t in m.group(1).split(",") if t]
+        given = args.args or []
+        if len(given) != len(types):
+            raise SystemExit(f"{args.gov_fn} takes {len(types)} arg(s), "
+                             f"got {len(given)}")
+        values = [_abi_cli_value(t, a) for t, a in zip(types, given)]
+        calldata = call_data(args.gov_fn, types, values)
+        target = args.target or client.engine_address
+        from_block = client.block_number()
+        txhash = client.send_to(
+            gov, "propose(address,uint256,bytes,string)",
+            ["address", "uint256", "bytes", "string"],
+            [target, 0, calldata, args.description])
+        # recover the id from our ProposalCreated log rather than
+        # re-deriving Governor._proposal_id client-side (same pattern as
+        # task-submit: the chain is the source of truth for assigned ids)
+        pid = None
+        me = client.wallet.address.lower()
+        for lg in client.get_logs("ProposalCreated", from_block,
+                                  client.block_number()):
+            if ("0x" + lg["topics"][2][-40:]).lower() == me:
+                pid = lg["topics"][1]
+        print(json.dumps({"txhash": txhash, "proposal_id": pid}))
+        return 0
+    if verb == "vote":
+        txhash = client.send_to(gov, "castVote(bytes32,uint8)",
+                                ["bytes32", "uint8"],
+                                [args.pid, args.support])
+        print(json.dumps({"txhash": txhash}))
+        return 0
+    if verb in ("queue", "execute", "cancel"):
+        txhash = client.send_to(gov, f"{verb}(bytes32)", ["bytes32"],
+                                [args.pid])
+        print(json.dumps({"txhash": txhash}))
+        return 0
+    if verb == "proposal":
+        state = abi_decode(["uint8"], client.eth_call_to(
+            gov, "state(bytes32)", ["bytes32"], [args.pid]))[0]
+        against, for_, abstain = abi_decode(
+            ["uint256", "uint256", "uint256"],
+            client.eth_call_to(gov, "proposalVotes(bytes32)", ["bytes32"],
+                               [args.pid]))
+        from arbius_tpu_torch.chain.governance import ProposalState
+
+        print(json.dumps({
+            "proposal_id": args.pid,
+            "state": ProposalState(state).name,
+            "votes": {"against": str(against), "for": str(for_),
+                      "abstain": str(abstain)}}))
+        return 0
+    raise SystemExit(f"unknown governance verb {verb}")
+
+
 def cmd_node_run(args) -> int:
     """Run the miner against a JSON-RPC endpoint (start.ts parity), on
     `--device` (the card unless `cpu` is asked for). Ticks at the
@@ -597,6 +819,72 @@ def main(argv=None) -> int:
     add_rpc_args(sp, key_required=False)
     sp.add_argument("--address", help="default: wallet address")
     sp.set_defaults(fn=cmd_balance)
+
+    sp = sub.add_parser("transfer", help="signed ERC20 transfer")
+    add_rpc_args(sp)
+    sp.add_argument("--to", required=True)
+    sp.add_argument("--amount", required=True, help="AIUS decimal amount")
+    sp.set_defaults(fn=cmd_transfer)
+
+    sp = sub.add_parser("decode-tx",
+                        help="decode a raw signed EIP-1559 transaction")
+    sp.add_argument("raw", help="0x-prefixed raw tx hex")
+    sp.set_defaults(fn=cmd_decode_tx)
+
+    sp = sub.add_parser("treasury-withdraw",
+                        help="sweep accrued protocol fees to the treasury")
+    add_rpc_args(sp)
+    sp.set_defaults(fn=cmd_treasury_withdraw)
+
+    sp = sub.add_parser("task-retract",
+                        help="owner reclaims an unsolved task's fee")
+    add_rpc_args(sp)
+    sp.add_argument("taskid", help="0x task id")
+    sp.set_defaults(fn=cmd_task_retract)
+
+    sp = sub.add_parser("signal-support",
+                        help="validator signals support for a model")
+    add_rpc_args(sp)
+    sp.add_argument("--model", required=True)
+    sp.add_argument("--support", default="true")
+    sp.set_defaults(fn=cmd_signal_support)
+
+    sp = sub.add_parser("engine-admin",
+                        help="owner/pauser-gated engine admin calls")
+    sp.add_argument("admin_verb", choices=["pause", "set-version",
+                                           "transfer-pauser",
+                                           "transfer-ownership"])
+    sp.add_argument("value", help="bool / version / address")
+    add_rpc_args(sp)
+    sp.set_defaults(fn=cmd_engine_admin)
+
+    sp = sub.add_parser("timetravel",
+                        help="advance devnet time and/or mine blocks")
+    sp.add_argument("--deployment", required=True)
+    sp.add_argument("--seconds", type=int, default=0)
+    sp.add_argument("--blocks", type=int, default=0)
+    sp.set_defaults(fn=cmd_timetravel)
+
+    sp = sub.add_parser("governance", help="DAO verbs against the governor")
+    gsub = sp.add_subparsers(dest="gov_verb", required=True)
+    gp = gsub.add_parser("delegate")
+    add_rpc_args(gp)
+    gp.add_argument("--to", help="delegatee (default: self)")
+    gp = gsub.add_parser("propose")
+    add_rpc_args(gp)
+    gp.add_argument("--target", help="call target (default: engine)")
+    gp.add_argument("--fn", dest="gov_fn", required=True,
+                    help='e.g. "setSolutionMineableRate(bytes32,uint256)"')
+    gp.add_argument("--args", nargs="*", help="call arguments")
+    gp.add_argument("--description", required=True)
+    for v in ("vote", "queue", "execute", "cancel", "proposal"):
+        gp = gsub.add_parser(v)
+        add_rpc_args(gp, key_required=(v != "proposal"))
+        gp.add_argument("--pid", required=True, help="0x proposal id")
+        if v == "vote":
+            gp.add_argument("--support", type=int, default=1,
+                            help="0=against 1=for 2=abstain")
+    sp.set_defaults(fn=cmd_governance)
 
     sp = sub.add_parser("node-run")
     sp.add_argument("config", help="MiningConfig.json path")

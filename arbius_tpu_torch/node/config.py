@@ -8,10 +8,7 @@ stake buffers, automine, RPC port, db path. Parsed + schema-validated
 up front (the reference only JSON-parses, start.ts:12-18; we reject
 unknown keys and wrong types at boot instead of failing mid-mine).
 
-Copy of arbius_tpu/node/config.py. Its body differs in three places:
-  - `AlertsConfig` checks `alerts.per_rule` against `RULE_NAMES` below,
-    the port's copy of the tuple in arbius_tpu/obs/healthwatch.py (the
-    alert engine is not ported);
+Copy of arbius_tpu/node/config.py. Its body differs in two places:
   - `MiningConfig` checks `mesh` with `validate_axes` below, the port's
     copy of the JAX-free function in arbius_tpu/parallel/mesh.py (that
     module imports JAX);
@@ -24,15 +21,6 @@ import json
 from dataclasses import dataclass, field
 
 import numpy as np
-
-# the alert catalog's rule names (arbius_tpu/obs/healthwatch.py)
-RULE_NAMES = (
-    "stuck_tick", "rpc_degraded", "pin_degraded", "job_quarantine",
-    "chain_replay", "crash_recovered", "contention", "invalid_inputs",
-    "pipeline_stall", "unprofitable_streak", "aot_reject_storm",
-    "perf_drift", "steal_surge", "lease_starvation", "slo_queue_wait",
-    "slo_time_to_commit", "decode_stall",
-)
 
 # mesh axis order (arbius_tpu/parallel/mesh.py)
 AXIS_ORDER = ("pp", "dp", "sp", "tp")
@@ -349,6 +337,8 @@ class AlertsConfig:
     per_rule: dict = field(default_factory=dict)
 
     def __post_init__(self):
+        from arbius_tpu_torch.obs.healthwatch import RULE_NAMES
+
         for name, bound in (("for_ticks", self.for_ticks),
                             ("resolve_ticks", self.resolve_ticks),
                             ("stuck_after_seconds",

@@ -24,17 +24,18 @@ Copy of arbius_tpu/node/node.py for the port, which runs on one CUDA
 device. What reaches JAX or an unported module changes:
   - `MinerNode` refuses, with `BootError` naming the ROADMAP item that
     ports it, every setting that needs a module the port lacks: a mesh
-    of more than one device, `aot_cache.enabled`, `compile_cache_dir`,
-    `perfscope.enabled`, `alerts.enabled` and `fleet.enabled`
-    (`_refuse_unported`). So
-    the mesh build and contract audit, the AOT cache, the perfscope
-    cards and the alert engine are gone from the body, with the mesh
-    intake gate; no bucket is disk-warm (`bucket_disk_warm`,
-    `_disk_warm_tags` stays empty), `healthwatch` stays None (the
-    control RPC reports alerts as disabled), and `solve_layout` stays
-    "single". `_observe_infer` feeds the cost-tagged
-    infer sample only (no perfscope card to bind). The staged pipeline
-    (`pipeline.enabled`, node/pipeline.py) is the reference's.
+    of more than one device, `aot_cache.enabled`, `compile_cache_dir`
+    and `perfscope.enabled` (`_refuse_unported`). So the mesh build and
+    contract audit, the AOT cache and the perfscope cards are gone from
+    the body, with the mesh intake gate; no bucket is disk-warm
+    (`bucket_disk_warm`, `_disk_warm_tags` stays empty) and
+    `solve_layout` stays "single". `_observe_infer` feeds the
+    cost-tagged infer sample only (no perfscope card to bind). The
+    staged pipeline (`pipeline.enabled`, node/pipeline.py), the alert
+    engine (`alerts.enabled`, obs/healthwatch.py: its `perf_drift` and
+    `aot_reject_storm` rules stay ok, as the reference's do with
+    perfscope and the AOT cache off) and the fleet worker hooks
+    (`fleet.enabled`, fleet/) are the reference's.
   - The reference's attention-impl check has no counterpart: the port's
     ops/flash.py picks its route by a fixed rule and has no override.
   - The boot self-test solves the golden at the canonical batch
@@ -163,8 +164,6 @@ def _refuse_unported(config: MiningConfig) -> None:
         (config.aot_cache.enabled, "aot_cache.enabled", 12),
         (bool(config.compile_cache_dir), "compile_cache_dir", 12),
         (config.perfscope.enabled, "perfscope.enabled", 12),
-        (config.alerts.enabled, "alerts.enabled", 12),
-        (config.fleet.enabled, "fleet.enabled", 12),
     )
     for on, name, item in refused:
         if on:
@@ -232,10 +231,26 @@ class MinerNode:
         # bare single-node miner, bit-for-bit.
         self.task_feed = None
         self.commit_guard = None
-        # the alert engine and the AOT cache are not ported (refused at
-        # boot): no alerts, and no bucket is disk-warm. The control
-        # RPC's /debug/alerts and /debug/costmodel read both.
+        # live alert engine (docs/healthwatch.md): installed at
+        # construction so the reference is
+        # published before any RPC request thread can exist (the
+        # /debug/alerts view reads it). Unclean-shutdown evidence is
+        # read from the checkpoint HERE, before boot clears heartbeats
+        # or any tick queues fresh work: a fresh db holds no jobs, a
+        # checkpoint with in-flight work means the previous life died
+        # mid-mine (the crash_recovered rule). None = no evaluation,
+        # the pre-healthwatch node bit-for-bit.
         self.healthwatch = None
+        if config.alerts.enabled:
+            from arbius_tpu_torch.obs.healthwatch import HealthWatch
+
+            self.healthwatch = HealthWatch(
+                self.obs, config.alerts, slo=config.slo,
+                recovered=any(
+                    j.method not in ("validatorStake", "automine")
+                    for j in self.db.get_jobs(2**60, limit=50)))
+        # the AOT cache is not ported (refused at boot): no bucket is
+        # disk-warm. The control RPC's /debug/costmodel reads it.
         self._disk_warm_tags: frozenset = frozenset()
         # mesh-layout tag of the solve programs (part of every cost-model
         # key: a tp2 bucket and a single-device bucket are different
@@ -491,6 +506,11 @@ class MinerNode:
                     "(docs/healthwatch.md)").inc()
                 log.warning("lease pump failed (will retry): %r", e)
         done = self._drain_jobs()
+        if self.healthwatch is not None:
+            # one evaluation per tick, AFTER the job cycle so this
+            # tick's counters are judged exactly once; degrades to a
+            # journaled skip internally — never why a tick fails
+            self.healthwatch.evaluate(self, done)
         return done
 
     def _drain_jobs(self) -> int:

@@ -45,6 +45,10 @@ class ModelRegistry:
         self._models: dict[str, RegisteredModel] = {}
 
     def register(self, model: RegisteredModel) -> None:
+        # detlint: allow[CONC401] boot-time only: build_registry fills
+        # the registry before node.boot() returns, which happens-before
+        # ControlRPC.start() — the map is frozen while request threads
+        # read it (mining never registers models mid-life)
         self._models[model.id.lower()] = model
 
     def get(self, model_id: str) -> RegisteredModel | None:

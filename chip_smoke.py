@@ -74,12 +74,15 @@ its own lines with timings:
      serves a funded chain over HTTP on 127.0.0.1; `python -m
      arbius_tpu_torch.cli node-run` mines it as a separate process with
      MiningConfig.example.json's node settings (staged pipeline on,
-     depth 2, 2 encode workers), booting with the committed golden
+     depth 2, 2 encode workers) and the live alert engine on
+     (`NODE_RUN_SETTINGS`), booting with the committed golden
      (phase 6's where the build differs). Phase 4's six inputs go on
      chain as the user's signed transactions; the node commits and
      reveals them, the devnet's clock advances, the node claims them.
      Each revealed CID must equal phase 6's fresh model's direct solve,
-     GET /metrics must show 6 solutions submitted, and the node's flash
+     GET /metrics must show 6 solutions submitted, export every alert
+     rule's state and show no alert firing (`alert_states`, printed per
+     rule), and the node's flash
      launches must be phase 4's per chunk, per route. Prints the host
      seconds from the first tick to the last reveal and claim, the
      stage seconds, the seconds per signed transaction and sol/h beside
@@ -173,6 +176,17 @@ its own lines with timings:
      and mode the resident weight GiB after the build and the peak over
      a PEAK_STEPS-step chunk (int8 resident below bf16's), and the
      dequantization's leaves, kernels and device ms.
+  13. ops and simnet, host only, in a process of its own started before
+     phase 9 so that it runs beside the card's work (its output printed
+     after phase 12): the port's DevnetNode served over HTTP
+     and every ops verb through arbius_tpu_torch.cli's `main` in that
+     process (`ops_verb_script`: transfer, decode-tx, treasury-withdraw,
+     engine-admin, task-retract, signal-support, timetravel and a
+     governance lifecycle among the node verbs), the chain state they
+     leave checked; simnet (`arbius_tpu_torch.sim`) over the reference's
+     acceptance matrix and fleet-race at seed 1 with the witness and
+     the alert engine, each with zero findings and the sha256 of its
+     summary printed; a 1,000-task flood through a 4-worker fleet.
 
 Each phase prints its wall seconds. Any failed check raises and the exit
 code is not 0. The last lines are the card, a `kernels` JSON line (with
@@ -924,8 +938,12 @@ def phase_node_run(torch, flash, expected, todo, fresh, golden,
     inputs = [h for _, h, _ in todo]
     with tempfile.TemporaryDirectory() as work:
         got = node_run_world(inputs, device="cuda", tiny=False,
-                             golden=golden, workdir=work)
+                             golden=golden, workdir=work,
+                             settings=NODE_RUN_SETTINGS)
     summary, metrics = got["summary"], got["metrics"]
+    states = alert_states(metrics)
+    print("node-run: alert engine on; final state per rule "
+          + ", ".join(f"{k} {v}" for k, v in states.items()), flush=True)
     submitted = _metric_sum(metrics, "arbius_solutions_submitted_total")
     check(submitted == len(inputs), f"GET /metrics shows "
           f"arbius_solutions_submitted_total {submitted}")
@@ -982,6 +1000,9 @@ def phase_node_run(torch, flash, expected, todo, fresh, golden,
 
 
 NODE_RUN_KEYS = ("0x" + "11" * 32, "0x" + "22" * 32)   # miner, user
+# phase 7's settings over MiningConfig.example.json's: the live alert
+# engine (obs/healthwatch.py) evaluates once per tick
+NODE_RUN_SETTINGS = {"alerts": {"enabled": True}}
 CHAIN_ID = 31337
 NODE_RUN_MAX_TICKS = 20_000   # node-run ends itself if SIGTERM never comes
 
@@ -1011,6 +1032,28 @@ def _metric_sum(text: str, name: str, **labels) -> float:
         if head.split("{")[0] == name and all(w in head for w in want):
             total += float(value)
     return total
+
+
+def alert_states(metrics: str) -> dict[str, str]:
+    """Each alert rule's state from a node's GET /metrics text: every
+    rule of the catalog must export `arbius_alert_state`, and none may
+    be firing in a clean mine (a clean simnet scenario raises no alert
+    either, SIM113)."""
+    from arbius_tpu_torch.obs.healthwatch import RULE_NAMES, STATE_CODES
+
+    names = {code: name for name, code in STATE_CODES.items()}
+    states = {}
+    for rule in RULE_NAMES:
+        head = f'arbius_alert_state{{alert="{rule}"}} '
+        [value] = [ln[len(head):] for ln in metrics.splitlines()
+                   if ln.startswith(head)] or [None]
+        check(value is not None, f"GET /metrics exports no state for "
+              f"alert rule {rule}")
+        states[rule] = names[int(float(value))]
+    firing = [ln for ln in metrics.splitlines()
+              if ln.startswith("ALERTS{") and 'alertstate="firing"' in ln]
+    check(not firing, f"alerts firing in a clean mine: {firing}")
+    return states
 
 
 def sign_seconds(reps: int = 5) -> dict[str, float]:
@@ -2992,6 +3035,257 @@ def precision_anythingv3(torch, flash, bf16, mined: dict, want: dict,
     torch.cuda.empty_cache()
 
 
+# phase 13, ops and simnet (host only): the ops verbs' keys (operator:
+# the user and the engine's first owner and pauser; miner: a validator),
+# and the simnet runs (the reference's acceptance matrix at one seed with
+# the witness and the alert engine, the fleet race, a 1,000-task flood
+# through a 4-worker fleet)
+OPS_KEYS = ("0x" + "0a" * 32, "0x" + "0b" * 32)
+SIM_SEED = 1
+SIM_SCENARIOS = ("clean", "rpc-flap", "pin-fail", "reorg", "crash-restart",
+                 "contested", "chaos", "fleet-race")
+SIM_FLOOD = ("--flood", "1000", "--workers", "4")
+
+
+def ops_world(chain, devnet, workdir: str):
+    """A funded chain with the operator as the engine's owner and pauser,
+    served over HTTP on 127.0.0.1 at a free port by `devnet.DevnetNode`
+    (`chain` and `devnet` are a package's chain modules); returns the
+    engine, the node, the deployment file's path, the operator's and the
+    miner's wallets, and the server (`shutdown()` it)."""
+    import threading
+
+    operator, miner = (chain.Wallet.from_hex(k) for k in OPS_KEYS)
+    tok = chain.TokenLedger()
+    eng = chain.Engine(tok, start_time=1000, owner=operator.address)
+    tok.mint(chain.Engine.ADDRESS, 600_000 * chain.WAD)
+    tok.mint(operator.address.lower(), 100_000 * chain.WAD)
+    tok.mint(miner.address.lower(), 10_000 * chain.WAD)
+    dev = devnet.DevnetNode(eng, chain_id=CHAIN_ID)
+    server = dev.serve("127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    dep = pathlib.Path(workdir) / "deployment.json"
+    dep.write_text(json.dumps({
+        "rpc_url": f"http://127.0.0.1:{server.server_address[1]}",
+        "engine_address": dev.engine_address,
+        "token_address": dev.token_address,
+        "governor_address": dev.governor_address, "chain_id": CHAIN_ID}))
+    return eng, dev, str(dep), operator, miner, server
+
+
+def _captured(fn, argv: list[str]) -> tuple[int, str, str]:
+    """fn(argv) with its standard output and errors captured."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def ops_verb_script(main, governance, dep: str, operator, miner,
+                    governor: str) -> list[str]:
+    """Every ops verb through a package's CLI `main` against `dep`'s
+    endpoint (an `ops_world`): register a model, stake, signal support,
+    submit two tasks and sign a third offline, decode it, transfer, the
+    owner's engine-admin calls (version, pause, unpause, then the owner
+    and pauser roles handed to the `governor`), retract a task after
+    the wait, sweep the treasury, a governance lifecycle that sets the
+    model's mineable rate (delegate, propose, vote, queue, execute, each
+    behind its timetravel), then the balances and task views. Each verb
+    must exit 0 but the view of the retracted task (1); returns what
+    each printed, in order."""
+    op = ["--deployment", dep, "--key", "0x" + operator.private_key.hex()]
+    mi = ["--deployment", dep, "--key", "0x" + miner.private_key.hex()]
+    transcript: list[str] = []
+
+    def run(*argv, rc: int = 0) -> dict:
+        got, out, err = _captured(main, list(argv))
+        check(got == rc, f"{argv[0]} exited {got}, not {rc}: {err}")
+        transcript.append(out)
+        return json.loads(out)
+
+    def travel(*argv) -> None:
+        run("timetravel", "--deployment", dep, *argv)
+
+    mid = run("model-register", *op, "--template", "anythingv3")["model_id"]
+    run("validator-stake", *mi)
+    run("signal-support", *mi, "--model", mid, "--support", "true")
+    tids = [run("task-submit", *op, "--model", mid, "--template",
+                "anythingv3", "--fee", "10", "--input", json.dumps(
+                    {"prompt": f"ops verbs {i}", "negative_prompt": ""})
+                )["taskid"] for i in range(2)]
+    raw = run("task-submit", *op, "--model", mid, "--input",
+              json.dumps({"prompt": "signed offline"}), "--sign-only")["raw"]
+    run("decode-tx", raw)
+    run("transfer", *op, "--to", miner.address, "--amount", "2.5")
+    run("engine-admin", "set-version", "3", *op)
+    run("engine-admin", "pause", "true", *op)
+    run("engine-admin", "pause", "false", *op)
+    run("engine-admin", "transfer-pauser", governor, *op)
+    run("engine-admin", "transfer-ownership", governor, *op)
+    travel("--seconds", "10001", "--blocks", "1")
+    run("task-retract", *op, tids[0])
+    run("treasury-withdraw", *op)
+    run("governance", "delegate", *op)
+    travel("--blocks", "1")
+    pid = run("governance", "propose", *op, "--fn",
+              "setSolutionMineableRate(bytes32,uint256)", "--args", mid,
+              str(10**18), "--description", "make the model mineable"
+              )["proposal_id"]
+    travel("--blocks", str(governance.VOTING_DELAY + 1))
+    run("governance", "vote", *op, "--pid", pid, "--support", "1")
+    travel("--blocks", str(governance.VOTING_PERIOD + 1))
+    run("governance", "queue", *op, "--pid", pid)
+    travel("--seconds", str(governance.TIMELOCK_MIN_DELAY + 1),
+           "--blocks", "1")
+    run("governance", "execute", *op, "--pid", pid)
+    run("governance", "proposal", "--deployment", dep, "--pid", pid)
+    for who in (operator, miner):
+        run("balance", "--deployment", dep, "--address", who.address)
+    run("task-status", "--deployment", dep, tids[0], rc=1)
+    run("task-status", "--deployment", dep, tids[1])
+    return transcript
+
+
+def sim_digest(doc: dict) -> str:
+    """sha256 of a simnet run's `summarize` JSON (the CLI's run entry
+    less the findings count it adds), as the tests print it."""
+    import hashlib
+
+    doc = {k: v for k, v in doc.items() if k != "findings"}
+    return hashlib.sha256(json.dumps(doc, sort_keys=True).encode()
+                          ).hexdigest()
+
+
+def phase_ops_and_simnet() -> dict:
+    """Phase 13, host only. (a) The port's DevnetNode serves an
+    `ops_world` over HTTP and every ops verb runs through
+    `arbius_tpu_torch.cli.main` in this process (`ops_verb_script`); the
+    chain state it leaves must be the script's. (b) `python -m
+    arbius_tpu_torch.sim` (its `main`, in this process) runs each of
+    SIM_SCENARIOS at SIM_SEED with the alert engine and the witness on;
+    each must exit 0 with zero findings; prints the sha256 of each
+    scenario's summary. (c) The 1,000-task flood through a 4-worker
+    fleet must exit 0 with every task claimed. Returns the seconds of
+    each part."""
+    import tempfile
+
+    from arbius_tpu_torch import chain
+    from arbius_tpu_torch.chain import devnet, governance
+    from arbius_tpu_torch.cli import main as cli_main
+    from arbius_tpu_torch.sim.cli import main as sim_main
+
+    seconds = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        eng, dev, dep, operator, miner, server = ops_world(chain, devnet,
+                                                           work)
+        try:
+            lines = ops_verb_script(cli_main, governance, dep, operator,
+                                    miner, dev.governor_address)
+        finally:
+            server.shutdown()
+            server.server_close()
+    views = [json.loads(ln) for ln in lines]
+    mid = bytes.fromhex(views[0]["model_id"][2:])
+    tids = [v["taskid"] for v in views[3:5]]
+    [proposal] = [v for v in views if "state" in v]
+    balances = {v["address"]: int(v["balance_wad"]) for v in views
+                if "balance_wad" in v}
+    check(eng.version == 3 and not eng.paused
+          and eng.owner == eng.pauser == dev.governor_address,
+          f"engine roles after engine-admin: version {eng.version}, "
+          f"paused {eng.paused}, owner {eng.owner}, pauser {eng.pauser}")
+    check(eng.models[mid].rate == 10**18 and proposal["state"] ==
+          "EXECUTED", f"governance left rate {eng.models[mid].rate}, "
+          f"proposal {proposal}")
+    check(eng.accrued_fees == 0
+          and eng.token.balance_of(eng.treasury) == chain.WAD,
+          "treasury-withdraw did not sweep the retraction's cut")
+    check(balances == {a.address: eng.token.balance_of(a.address.lower())
+                       for a in (operator, miner)}
+          and balances[miner.address] == 10_000 * chain.WAD
+          + 25 * 10**17 - eng.validators[miner.address.lower()].staked,
+          f"balances {balances}")
+    check(views[-2] == {"taskid": tids[0], "error": "task not found"}
+          and views[-1]["taskid"] == tids[1]
+          and views[-1]["solution"] is None
+          and bytes.fromhex(tids[1][2:]) in eng.tasks
+          and bytes.fromhex(tids[0][2:]) not in eng.tasks,
+          f"task views {views[-2:]}")
+    seconds["ops verbs"] = time.perf_counter() - t0
+    print(f"ops: {len(lines)} verbs through arbius_tpu_torch.cli over "
+          f"JSON-RPC in {seconds['ops verbs']:.1f} s; engine version "
+          f"{eng.version}, roles with the governor, rate "
+          f"{eng.models[mid].rate}, balances {balances}", flush=True)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        for name in SIM_SCENARIOS:
+            rc, out, err = _captured(sim_main, [
+                "--scenario", name, "--seed", str(SIM_SEED),
+                "--healthwatch", "--witness", "--json", "--workdir", work])
+            doc = json.loads(out) if rc in (0, 1) else {}
+            check(rc == 0 and doc["findings"] == []
+                  and [r["findings"] for r in doc["runs"]] == [0],
+                  f"simnet {name} seed {SIM_SEED} exited {rc}: "
+                  f"{out[-2000:]}{err[-2000:]}")
+            [run] = doc["runs"]
+            print(f"simnet: {name} seed {SIM_SEED}: 0 findings, "
+                  f"{run['rounds']} rounds, terminal {run['terminal']}, "
+                  f"summary sha256 {sim_digest(run)}", flush=True)
+    seconds["simnet"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        rc, out, err = _captured(sim_main, [*SIM_FLOOD, "--json",
+                                            "--workdir", work])
+    doc = json.loads(out) if rc in (0, 1) else {}
+    check(rc == 0 and doc["findings"] == []
+          and doc["flood"]["claimed"] == int(SIM_FLOOD[1]),
+          f"simnet {' '.join(SIM_FLOOD)} exited {rc}: {out[-2000:]}"
+          f"{err[-2000:]}")
+    seconds["flood"] = time.perf_counter() - t0
+    print(f"simnet: {' '.join(SIM_FLOOD)}: 0 findings, "
+          f"{doc['flood']['claimed']} claimed in {doc['flood']['rounds']} "
+          f"rounds, report sha256 {sim_digest(doc['flood'])}", flush=True)
+    print("ops and simnet: seconds " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
+    return seconds
+
+
+def start_ops_and_simnet():
+    """Start phase 13 (`phase_ops_and_simnet`, host only) in its own
+    process, so that it runs beside the card's work of the phases after
+    it is started; its output goes to temporary files. The process is
+    killed at exit if it is still running."""
+    import atexit
+    import subprocess
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.phase_ops_and_simnet()"],
+        cwd=pathlib.Path(__file__).resolve().parent, stdout=out,
+        stderr=err, text=True)
+    atexit.register(proc.kill)
+    return proc, out, err
+
+
+def finish_ops_and_simnet(started, timeout: float = 600.0) -> None:
+    """Wait for phase 13's process, print its output, and fail unless it
+    exited 0."""
+    proc, out, err = started
+    rc = proc.wait(timeout=timeout)
+    out.seek(0)
+    err.seek(0)
+    print(out.read(), end="", flush=True)
+    check(rc == 0, f"phase 13 exited {rc}: {err.read()[-4000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -3188,6 +3482,9 @@ def main() -> int:
     k2 = phase_kandinsky2(torch, flash)
     wall_mark("8 kandinsky2")
 
+    # -- 13. ops and simnet: host only, in its own process beside 9-12 -------
+    ops = start_ops_and_simnet()
+
     # -- 9. text-to-video ------------------------------------------------------
     video = phase_video(torch, flash)
     wall_mark("9 text-to-video")
@@ -3206,6 +3503,10 @@ def main() -> int:
           f"phase 12 launched {precision['launches']}, not every route of "
           f"{expected}")
     wall_mark("12 precision modes")
+
+    # -- 13. ops and simnet (started before phase 9) --------------------------
+    finish_ops_and_simnet(ops)
+    wall_mark("13 ops and simnet, waited for after phase 12")
 
     entries = kernel_entries(flash, buckets, {
         "launches": launches, "launches_node": node_launches,

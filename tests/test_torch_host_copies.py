@@ -2,7 +2,8 @@
 codecs (PNG, JPEG, H.264 and MP4, and the input side: the MP4 demuxer,
 the H.264 decoder and the probe clip), templates, tokenizer, diffusion tables, and the node's host
 modules: obs, chain, config, db, store, pinners, retry, scheduler, the
-JSON-RPC chain and the staged pipeline) and imports nothing of
+JSON-RPC chain and the staged pipeline; the alert engine, fleetscope,
+the fleet, simnet and the runtime witness) and imports nothing of
 arbius_tpu; these tests hold each copy's output
 byte-equal to its twin's, the files that are copied verbatim byte-equal
 on disk, and the copied modules' text equal to their twins' once
@@ -66,22 +67,40 @@ RENAMED_COPIES = [
     "node/chain_client.py", "node/costmodel.py", "node/db.py",
     "node/pinners.py", "node/pipeline.py", "node/retry.py",
     "node/rpc.py", "node/rpc_chain.py", "node/store.py",
+    "obs/healthwatch.py", "analysis/conc/witness.py",
+    "sim/__init__.py", "sim/bugs.py", "sim/clock.py",
+    "sim/faults.py", "sim/invariants.py", "sim/rng.py", "sim/scenario.py",
+    "fleet/__init__.py", "fleet/__main__.py", "fleet/coordinator.py",
+    "fleet/lease.py", "fleet/worker.py",
 ]
 
 # twins whose body differs, and why (each module's docstring says how)
 CHANGED_TWINS = {
     "node/node.py": "refuses unported settings at boot; no mesh, AOT "
-                    "cache, perfscope or alert engine; self-test at the "
-                    "canonical batch; torch.profiler",
-    "cli.py": "the node verbs only; node-run on --device, paced ticks, "
-              "SIGTERM and an exit summary",
-    "node/config.py": "own copies of RULE_NAMES and validate_axes; no "
-                      "compile cache by default",
+                    "cache or perfscope; self-test at the canonical "
+                    "batch; torch.profiler",
+    "cli.py": "the node and ops verbs; no offline template, CID, "
+              "emission or checkpoint verbs; node-run on --device, paced "
+              "ticks, SIGTERM and an exit summary",
+    "node/config.py": "own copy of validate_axes; no compile cache by "
+                      "default",
+    "sim/harness.py": "refuses a mesh, a precision other than bf16 and "
+                      "perfscope (no probe runner)",
+    "sim/fleet.py": "refuses aot_dir (no AOT cache or probe runner)",
+    "sim/cli.py": "own exit codes and parse-collect-render loop: the "
+                  "lint package stays the reference's",
+    "sim/__main__.py": "runs under `if __name__ == \"__main__\"` only, so "
+                       "importing every module runs nothing",
+    "analysis/__init__.py": "the witness only: the lint machinery stays "
+                            "the reference's",
+    "analysis/conc/__init__.py": "the witness only: the static conclint "
+                                 "stays the reference's",
     "node/solver.py": "runners hold their pipelines' weights; results "
                       "come back through pinned memory and CUDA events",
     "node/factory.py": "on a torch device; no mesh, checkpoint or CLIP "
                        "BPE; the pipeline quantizes as it loads",
     "node/sched.py": "module docstring only: no project history",
+    "obs/fleetscope.py": "module docstring only: no project history",
 }
 
 

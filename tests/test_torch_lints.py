@@ -7,7 +7,10 @@ a pragma with its reason, or baselined with its reason; no baseline
 entry is stale; and the copied pipeline's `enforce[CONC302]` directive
 still holds in the port (an unbounded stage queue fails the lint even
 with a baseline): CONC302 scopes itself by path to the reference's
-node package, so that check lays the port's node/ out under that path."""
+node package, so that check lays the port's node/ out under that path.
+The copied simnet, fleet, alert-engine and fleetscope modules keep their
+`enforce[DET101,...]` directives live: a copy that reads the wall clock
+fails the lint, enforced."""
 from __future__ import annotations
 
 import json
@@ -93,3 +96,29 @@ def test_pipeline_conc302_stays_enforced(tmp_path, bounded):
     else:
         assert len(found) == 1 and found[0].enforced
         assert found[0].path == "arbius_tpu/node/pipeline.py"
+
+
+# the copies of simnet, the fleet, the alert engine and fleetscope carry
+# the reference's `detlint: enforce` directives
+SIM_ENFORCED = sorted(
+    p.relative_to(PORT).as_posix()
+    for p in [*(PORT / "sim").glob("*.py"), *(PORT / "fleet").glob("*.py"),
+              PORT / "obs" / "healthwatch.py", PORT / "obs" / "fleetscope.py"]
+    if "# detlint: enforce[" in p.read_text())
+WALL_CLOCK = "\n\ndef _mutant_clock():\n    import time\n\n    return time.time()\n"
+
+
+@pytest.mark.parametrize("path", SIM_ENFORCED)
+def test_copied_enforce_directives_hold(tmp_path, path):
+    """Each copied module's `enforce[DET101,...]` holds over the port: as
+    shipped it has no enforced finding, and a copy that reads the wall
+    clock fails DET101 enforced, so no pragma or baseline can absorb it."""
+    src = (PORT / path).read_text()
+    assert "# detlint: enforce[DET101," in src
+    assert not [f for f in _detlint([PORT / path]) if f.enforced]
+    mutant = tmp_path / "arbius_tpu_torch" / path
+    mutant.parent.mkdir(parents=True)
+    mutant.write_text(src + WALL_CLOCK)
+    hits = [f for f in _detlint([mutant], root=tmp_path)
+            if f.rule == "DET101"]
+    assert len(hits) == 1 and hits[0].enforced, hits

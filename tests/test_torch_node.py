@@ -809,8 +809,8 @@ def test_int8_anythingv3_mines_in_its_mode(params, one_torch_thread):
     ({"aot_cache": {"enabled": True}}, 12),
     ({"compile_cache_dir": ".jax_cache"}, 12),
     ({"perfscope": {"enabled": True}}, 12),
-    ({"alerts": {"enabled": True}}, 12),
-    ({"fleet": {"enabled": True}}, 12),
+    ({"alerts": {"enabled": True}}, "boots"),
+    ({"fleet": {"enabled": True}}, "boots"),
     ({"precision": {"default": "int8"},
       "models": [{"id": "0x" + "cd" * 32, "template": "textgen"}]}, None),
     ({"precision": {"templates": {"textgen": "fp8", "anythingv3": "fp8"}},
@@ -827,8 +827,10 @@ def test_unported_settings_refused_at_boot(overrides, item):
     """Each setting whose module the port lacks raises BootError naming
     its ROADMAP item; a setting once refused whose module is ported now
     (item None: a full-width textgen model, in bf16, int8 and fp8) boots
-    and solves in its mode. robust_video_matting in int8 (item "bf16")
-    is refused by the factory with the reference's sentence."""
+    and solves in its mode; the alert engine and the fleet worker hooks
+    (item "boots") boot a node with no model. robust_video_matting in
+    int8 (item "bf16") is refused by the factory with the reference's
+    sentence."""
     from arbius_tpu_torch.node import BootError, load_config
 
     cfg = load_config(overrides)
@@ -841,6 +843,14 @@ def test_unported_settings_refused_at_boot(overrides, item):
                 "only \\(docs/quantization.md\\)")):
             P.node.build_registry(cfg, device="cpu",
                                   resolve_file=lambda cid: None)
+        return
+    if item == "boots":
+        node = P.node.MinerNode(P.node.LocalChain(eng, MINER), cfg,
+                                P.node.ModelRegistry())
+        node.boot()
+        assert (node.healthwatch is not None) == cfg.alerts.enabled
+        node.tick()
+        node.close()
         return
     if item is None:
         [m] = cfg.models
@@ -888,7 +898,7 @@ def test_single_device_mesh_boots():
     assert node.solve_layout == "single"
 
 
-def test_kandinsky2_boots_with_recorded_golden_and_mines():
+def test_kandinsky2_boots_with_recorded_golden_and_mines(one_torch_thread):
     """The tiny kandinsky2 model on the CPU (the port's seeded init, bf16
     weights, canonical batch 1): record-golden's function records the
     self-test vector at the template's 768x768 (50 steps, DDIM, guidance

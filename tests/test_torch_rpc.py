@@ -2,10 +2,11 @@
 the reference's, on the CPU: both packages' `ControlRPC` serve a node
 that mined one task through the same script (tests/test_torch_node.py's
 world and fake runner), and every view answers the same JSON, text or
-HTML over HTTP, apart from host timings. The port boots with perfscope
-and the alert engine off (it refuses them until ROADMAP queue 1 item 12
-ports them), so /debug/costmodel's perfscope join and /debug/alerts
-answer what the reference answers with both off. A view that raises
+HTML over HTTP, apart from host timings. The port refuses perfscope
+until ROADMAP queue 1 item 12 ports it, and these nodes run with the
+alert engine off, so /debug/costmodel's perfscope join and /debug/alerts
+answer what the reference answers with both off (the alert engine's
+views: tests/test_torch_healthwatch.py). A view that raises
 answers 500 and is counted, and the server goes on answering."""
 from __future__ import annotations
 

@@ -461,12 +461,14 @@ def test_node_run_ticks_subprocess(tiny, tmp_path):
     """`python -m arbius_tpu_torch.cli node-run --device cpu --ticks N`
     as its own process against a devnet on localhost (chip_smoke.py
     phase 7's world, tiny model, bf16 weights, MiningConfig.example.json's
-    node settings with the pipeline on): it boots with a golden from the
-    port's record-golden, mines and claims three tasks, GET /metrics
-    counts them, SIGTERM ends it with exit code 0 and its summary, and
-    each revealed CID is the in-process solve's."""
+    node settings with the pipeline on and phase 7's alert engine): it
+    boots with a golden from the port's record-golden, mines and claims
+    three tasks, GET /metrics counts them and exports every alert rule's
+    state with none firing, SIGTERM ends it with exit code 0 and its
+    summary, and each revealed CID is the in-process solve's."""
     from arbius_tpu_torch.cli import record_golden
     from arbius_tpu_torch.l0 import taskid2seed
+    from arbius_tpu_torch.obs.healthwatch import RULE_NAMES
     from arbius_tpu_torch.node import (
         MiningConfig,
         ModelConfig,
@@ -483,12 +485,15 @@ def test_node_run_ticks_subprocess(tiny, tmp_path):
     inputs = [_task(i) for i in range(3)]
     got = chip_smoke.node_run_world(inputs, device="cpu", tiny=True,
                                     golden=golden, workdir=str(tmp_path),
-                                    timeout=240)
+                                    timeout=240,
+                                    settings=chip_smoke.NODE_RUN_SETTINGS)
     summary = got["summary"]
     assert summary["solutions_submitted"] == 3
     assert summary["solutions_claimed"] == 3 and summary["failed_jobs"] == 0
     assert chip_smoke._metric_sum(
         got["metrics"], "arbius_solutions_submitted_total") == 3
+    states = chip_smoke.alert_states(got["metrics"])
+    assert set(states) == set(RULE_NAMES) and "firing" not in states.values()
     # CPU: no kernel, at boot or while mining
     assert set(summary["flash_launches"].values()) == {0}
     assert set(summary["flash_launches_boot"].values()) == {0}
