@@ -280,19 +280,6 @@ __global__ void __launch_bounds__(Layout<D, NK>::kThreads, 1)
   }
 }
 
-// SMs on the current device, read once
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
 // Query tiles per block: the run length that finishes soonest with one
 // block per SM, counting a block's time as its tile loads plus its K and
 // V loads (`kv_tiles`, in tiles' worth of rows) and the blocks in whole

@@ -414,6 +414,16 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
+// mbar_arrive if `pred`: predicated, not branched (see mbar_arrive_cluster)
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar), "r"((uint32_t)pred)
+      : "memory");
+}
+
 // arrive, and expect `bytes` more from TMA copies before the phase completes
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                                                       uint32_t bytes) {
@@ -549,6 +559,16 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+// named_arrive if `pred`, predicated
+__device__ __forceinline__ void named_arrive_if(int id, int count,
+                                                bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p bar.arrive %0, %1;\n"
+      "}\n" ::"r"(id), "r"(count), "r"((uint32_t)pred)
+      : "memory");
+}
 
 // give registers back (producer) or take them (consumers); the whole
 // warpgroup executes it
@@ -572,6 +592,21 @@ constexpr bool regs_balance(int threads, int consumers, int producer_regs,
   const int start = (65536 / threads) & ~7;
   return producer_regs <= start && consumer_regs >= start &&
          consumers * (consumer_regs - start) <= start - producer_regs;
+}
+
+// -- the device (host) -------------------------------------------------------
+
+// SMs on the current device, read once
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
 }
 
 // -- tensor maps (host) -----------------------------------------------------

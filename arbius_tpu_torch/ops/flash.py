@@ -9,9 +9,10 @@ aligned data (their loads are 16-byte copies or TMA boxes):
 
   - ``tensor_core_wgmma`` (``csrc/flash_attn_wgmma.cu``): Hopper's
     warpgroup products (wgmma) fed by TMA, consumer warpgroups taking
-    turns on them over a ring of key tiles, for D = 40, 64, 80 and 160
-    at any lengths. The UNets' self-attentions over more than 128 keys
-    take it.
+    turns on them over a ring of key tiles, in persistent blocks (one
+    per SM) that walk (b*h, query tile) work tiles in a fixed order, O
+    written by TMA stores, for D = 40, 64, 80 and 160 at any lengths.
+    The UNets' self-attentions over more than 128 keys take it.
   - ``tensor_core_wgmma_short`` (``csrc/flash_attn_wgmma_short.cu``):
     wgmma over one key tile, K and V resident and the query tiles
     streamed through a TMA ring, O written by TMA stores, for D = 40, 64,

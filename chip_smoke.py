@@ -17,7 +17,8 @@ its own lines with timings:
      route (nvcc, csrc/flash_attn.cu), and the native PNG deflate (g++),
      all at once; ptxas registers, spills and notes of serialised wgmma
      products per kernel (the wgmma kernels and the mma.sync wide one
-     must not spill, the wgmma wide one must have no such note).
+     must not spill, the wgmma and wgmma wide ones must have no such
+     note, the short wgmma one none at D = 64).
   2. kernels: each route against the plain PyTorch version run in
      float32 on the same inputs, at every shape the main path (512x512)
      and the template's default bucket (768x768) give it, and at the
@@ -3337,10 +3338,10 @@ def main() -> int:
             check(spills and all("0 bytes spill stores, 0 bytes spill loads"
                                  in r for r in spills),
                   f"{source} spills registers: {spills}")
-        if route == "tensor_core_wgmma_wide":
+        if route in ("tensor_core_wgmma", "tensor_core_wgmma_wide"):
             check(not serial, f"{source}: ptxas serialises its products "
                   f"({serial})")
-        if route in ("tensor_core_wgmma", "tensor_core_wgmma_short"):
+        if route == "tensor_core_wgmma_short":
             d64 = {k: v for k, v in serial.items() if k.startswith("<64")}
             check(not d64, f"{source}: ptxas serialises the D = 64 "
                   f"products ({d64})")

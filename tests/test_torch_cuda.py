@@ -54,12 +54,16 @@ _WIDE_SHAPES = [(4, 1, 4096, 4096, 512), (1, 1, 200, 77, 512),
 _WGMMA_WIDE_SHAPES = [*_WIDE_SHAPES, (4, 1, 6400, 6400, 512),
                       (4, 1, 12288, 12288, 512)]
 # the UNet's two large self-attentions at 512x512, lengths that differ,
-# D = 160 at 512x512 and 768x768, D = 80 at 640x640, ragged lengths
+# D = 160 at 512x512 and 768x768, D = 80 at 640x640, ragged lengths; the
+# video UNet's D = 64 self-attentions at damo's 1024 and 256 tokens and
+# zeroscopev2xl's 144; fewer work tiles (b*h x query tiles) than SMs
 _WGMMA_SHAPES = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
                  (1, 2, 128, 384, 40), (2, 3, 384, 128, 80),
                  (8, 8, 256, 256, 160), (8, 8, 576, 576, 160),
                  (8, 8, 1600, 1600, 80), (1, 2, 200, 333, 40),
-                 (2, 3, 100, 129, 160), (1, 1, 64, 1000, 80)]
+                 (2, 3, 100, 129, 160), (1, 1, 64, 1000, 80),
+                 (128, 5, 1024, 1024, 64), (128, 10, 256, 256, 64),
+                 (192, 20, 144, 144, 64), (1, 3, 300, 700, 64)]
 # the 77-key cross-attentions at 512x512 and 768x768, short
 # self-attentions, and ragged query lengths and key widths (N = 16, 32,
 # 64, 80, 128)

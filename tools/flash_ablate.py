@@ -3,7 +3,7 @@
 one part of the work taken out or one setting changed (ablations), to see
 what holds them back on a card where no profiler runs.
 
-    python3 tools/flash_ablate.py [ROUTE ...]
+    python3 tools/flash_ablate.py [ROUTE ...] [--against OTHER_CHECKOUT]
 
 Needs one CUDA card and nvcc; imports torch and the port only. For each
 route in ABLATIONS (the wgmma route, csrc/flash_attn_wgmma.cu, the short
@@ -12,19 +12,30 @@ csrc/flash_attn_wgmma_wide.cu), or the ROUTEs named, builds its source
 and each copy (flash_mutants.py's build), checks the intact build against
 the plain version within ops/flash.py's `error_bound`, and times every
 build, in two rounds in opposite orders, at each shape the route takes at
-512x512 and 768x768, in the models' strided views, beside the route it
-replaced (YARDSTICK: mma.sync, or mma.sync's wide kernel) and SDPA. Each time is the card's, from `chip_smoke.cuda_ms`: ten calls
-captured in a CUDA graph and the graph replayed between two events, so
-the host's enqueue is not in it. An ablated build computes wrong
-results; only its time is read: the time it saves is what the part
-taken out costs where nothing else takes its place. Prints one JSON line
-per shape; exit 0 if the intact build passes its check.
+512x512 and 768x768 and in damo's and zeroscopev2xl's chunks
+(`buckets`), in the models' strided views, beside the
+route it replaced (YARDSTICK: mma.sync, or mma.sync's wide kernel), SDPA
+and the shape's bound (`chip_smoke.bound_ms`). With `--against`, the
+other checkout's source of each route (the parent commit unpacked with
+`git archive`), built with that checkout's own headers, is one more
+build in both rounds. Each time is the card's, from `chip_smoke.cuda_ms`:
+ten calls captured in a CUDA graph and the graph replayed between two
+events, so the host's enqueue is not in it. An ablated build computes
+wrong results; only its time is read: the time it saves is what the
+part taken out costs where nothing else takes its place. Prints one JSON
+line per shape (each build's times, the bound's share of the intact
+build's mean, and the builds whose output has the intact build's bits),
+then per bucket each build's mean time summed over one anythingv3 batch
+or one video chunk's calls; exit 0 if the intact build passes its check.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
+import shutil
+import statistics
 import sys
 import tempfile
 from pathlib import Path
@@ -38,22 +49,22 @@ from flash_mutants import build_edited  # noqa: E402
 # route -> name -> (text in the route's source, its replacement) pairs
 WGMMA_ABLATIONS = {
     "intact": [],
-    # D = 40 on two consumer warpgroups (128-row tiles), as at D = 80
+    # two consumer warpgroups (128-row tiles) at D = 40 and 64
     "two_consumers": [
-        ("kWarpgroups = D == 40 ? 3 : 2;", "kWarpgroups = 2;"),
-        ("kProducerRegs = D == 40 ? 24 : 40;", "kProducerRegs = 40;"),
-        ("kConsumerRegs = D == 40 ? 160 : 232;", "kConsumerRegs = 232;")],
+        ("  if (d == 40) return launch<40, 3>(p, batch, st);",
+         "  if (d == 40) return launch<40, 2>(p, batch, st);"),
+        ("return 5 * rows3 <= 6 * rows2 ? 3 : 2;", "return 2;")],
     # the exponentials (the SFU's work) left out of the softmax
-    "no_exp2": [("s[i] = ex2(fmaf(s[i], sl2, -msc[(i >> 1) & 1]));",
-                 "s[i] = fmaf(s[i], sl2, -msc[(i >> 1) & 1]);")],
+    "no_exp2": [("s[j] = ex2(fmaf(s[j], sl2, -msc[(j >> 1) & 1]));",
+                 "s[j] = fmaf(s[j], sl2, -msc[(j >> 1) & 1]);")],
     # the product S = Q K^T, or O += P V, not issued
-    "no_qk": [("          wgmma_ss<kBK>(\n",
-               "          if (ks < 0) wgmma_ss<kBK>(\n")],
+    "no_qk": [("            wgmma_ss<kBK>(\n",
+               "            if (ks < 0) wgmma_ss<kBK>(\n")],
     "no_pv": [("wgmma_rs<D>(o, pa[kk],",
                "if (kk < 0) wgmma_rs<D>(o, pa[kk],")],
     # neither product: the loads, the softmax and the turns
-    "no_products": [("          wgmma_ss<kBK>(\n",
-                     "          if (ks < 0) wgmma_ss<kBK>(\n"),
+    "no_products": [("            wgmma_ss<kBK>(\n",
+                     "            if (ks < 0) wgmma_ss<kBK>(\n"),
                     ("wgmma_rs<D>(o, pa[kk],",
                      "if (kk < 0) wgmma_rs<D>(o, pa[kk],")],
     # half of each K/V tile loaded (its first rows): half the bytes
@@ -65,11 +76,46 @@ WGMMA_ABLATIONS = {
                     "mbar_arrive_expect_tx(fk, L::kKV / 2);"),
                    ("mbar_arrive_expect_tx(fv, L::kKV);",
                     "mbar_arrive_expect_tx(fv, L::kKV / 2);")],
-    # the consumers release each tile as it lands: the TMA loads alone
-    "loads_only": [("      named_sync(kBarTurn + c, 256);\n",
-                    "      if (has_s) mbar_arrive(smem_addr(&bars.empty_k"
-                    "[st]));\n      if (has_pv) mbar_arrive(smem_addr("
-                    "&bars.empty_v[pst]));\n      continue;\n")],
+    # the consumers release each tile as it lands: the TMA loads (and
+    # O's stores) alone
+    "loads_only": [("        named_sync(kBarTurn + c, 256);\n",
+                    "        if (has_s) mbar_arrive(smem_addr(&bars.empty_k"
+                    "[st]));\n        if (has_s) mbar_arrive_if(smem_addr("
+                    "&bars.empty_q), t == ntiles - 1);\n        if "
+                    "(has_pv) mbar_arrive(smem_addr(&bars.empty_v[pst]));"
+                    "\n        return;\n")],
+    # three consumer warpgroups (192-row tiles) at D = 64 at every length
+    "three_consumers": [("return 5 * rows3 <= 6 * rows2 ? 3 : 2;",
+                         "return 3;")],
+    # the consumers issue their products in no fixed turn
+    "no_turns": [
+        ("    if (c == 0) named_arrive(kBarTurn, 256);  // consumer 0 goes "
+         "first\n", ""),
+        ("        named_sync(kBarTurn + c, 256);\n", ""),
+        ("        named_arrive_if(kBarTurn + (c + 1) % kWG, 256,\n"
+         "                        has_s || c + 1 < kWG || !last_work);\n",
+         "")],
+    # P's bf16 conversion by integer rounding (the same bits for P's
+    # finite values), off the pipe the exp2s take
+    "p_pack_int": [
+        ("template <int D, int WG>\n__global__",
+         "__device__ __forceinline__ uint32_t pack_int(float lo, float hi) {\n"
+         "  uint32_t a = __float_as_uint(lo), b = __float_as_uint(hi);\n"
+         "  a += 0x7fffu + ((a >> 16) & 1u);\n"
+         "  b += 0x7fffu + ((b >> 16) & 1u);\n"
+         "  return __byte_perm(a, b, 0x7632);\n}\n\n"
+         "template <int D, int WG>\n__global__"),
+        *((f"pa[kk][{e}] = pack_bf16(s[8 * kk{a}],",
+           f"pa[kk][{e}] = pack_int(s[8 * kk{a}],")
+          for e, a in ((0, ""), (1, " + 2"), (2, " + 4"), (3, " + 6")))],
+    # the K/V ring n stages deep where more would fit (D = 40, 64)
+    **{f"ring_{n}": [("constexpr int kMaxStages = 6;",
+                      f"constexpr int kMaxStages = {n};")]
+       for n in (2, 3, 4)},
+    # one block per work tile, as before the blocks persisted
+    "a_block_per_tile": [
+        ("const int grid = work < sm_count() ? work : sm_count();",
+         "const int grid = work;")],
 }
 _WIDE_ONE_BLOCK = [("constexpr int kCluster = 2;",
                     "constexpr int kCluster = 1;")]
@@ -178,35 +224,83 @@ YARDSTICK = {"tensor_core_wgmma": "tensor_core",
              "tensor_core_wgmma_wide": "tensor_core_wide"}
 
 
+def buckets() -> tuple:
+    """(bucket, shapes) timed: anythingv3's 512x512 and 768x768, and the
+    chunks of damo and zeroscopev2xl."""
+    return (("512x512", chip_smoke.MAIN_PATH_SHAPES),
+            ("768x768", chip_smoke.BUCKET_768_SHAPES),
+            ("damo 256x256x16", chip_smoke.DAMO_SHAPES),
+            ("zeroscopev2xl 1024x576x24", chip_smoke.ZEROSCOPE_SHAPES))
+
+
+def against_copy(tmp: Path, other: Path, source: str) -> Path:
+    """The other checkout's `source` with its own headers, in a directory
+    of their own under `tmp`."""
+    where = tmp / "against"
+    where.mkdir(parents=True, exist_ok=True)
+    for header in (other / "arbius_tpu_torch" / "csrc").glob("*.cuh"):
+        shutil.copy(header, where / header.name)
+    return Path(shutil.copy(other / "arbius_tpu_torch" / "csrc" / source,
+                            where / source))
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("routes", nargs="*", metavar="ROUTE",
+                        help=f"routes to time (default: all of "
+                        f"{', '.join(ABLATIONS)})")
+    parser.add_argument("--against", metavar="OTHER_CHECKOUT",
+                        help="also time the other checkout's source of "
+                        "each route, built with its own headers")
+    args = parser.parse_args()
+    unknown = sorted(set(args.routes) - set(ABLATIONS))
+    if unknown:
+        parser.error(f"no ablations for {unknown}")
     if not torch.cuda.is_available():
         print("flash_ablate: CUDA is not available", file=sys.stderr)
         return 1
     from arbius_tpu_torch.ops import _build, flash
     from arbius_tpu_torch.utils import card_info, setup_device
 
-    chosen = {route: ABLATIONS[route] for route in sys.argv[1:]
-              } or ABLATIONS
+    chosen = {route: dict(ABLATIONS[route]) for route in args.routes
+              } or {route: dict(a) for route, a in ABLATIONS.items()}
     setup_device("cuda")
     print(card_info(), flush=True)
     ok = True
+    # (route, bucket) -> build -> the mean ms of its shapes' calls in one
+    # anythingv3 batch or one video chunk (the shapes' launch counts)
+    totals: dict[tuple[str, str], dict[str, float]] = {}
     with tempfile.TemporaryDirectory() as tmp:
+        copies = {}
+        if args.against:
+            for route, ablations in chosen.items():
+                ablations["against"] = []
+                copies[route, "against"] = against_copy(
+                    Path(tmp) / route, Path(args.against),
+                    flash.SOURCES[route])
         built = build_edited(Path(tmp), {
             (route, name): pairs for route, ablations in chosen.items()
-            for name, pairs in ablations.items()})
+            for name, pairs in ablations.items() if name != "against"},
+            copies)
         libs = {}
         for (route, name), so in built.items():
             libs[route, name] = ctypes.CDLL(str(so))
             flash._declare(libs[route, name])
+            report = so.with_suffix(".log").read_text()
+            print(json.dumps({
+                "route": route, "build": name,
+                "spills": [r.strip() for r in report.splitlines()
+                           if "spill" in r],
+                "serialisation_notes":
+                    chip_smoke.serialisation_notes(report)}), flush=True)
         gen = torch.Generator(device="cuda").manual_seed(0)
         for route, ablations in chosen.items():
             source = flash.SOURCES[route]
-            for bucket, shapes in (("512x512", chip_smoke.MAIN_PATH_SHAPES),
-                                   ("768x768", chip_smoke.BUCKET_768_SHAPES)):
-                for b, h, sq, skv, d, _ in shapes:
+            for bucket, shapes in buckets():
+                for b, h, sq, skv, d, calls in shapes:
                     q, k, v = (torch.randn(b, s, h * d, generator=gen,
                                            device="cuda").bfloat16()
                                .view(b, s, h, d).transpose(1, 2)
@@ -214,7 +308,9 @@ def main() -> int:
                     if flash.route_of(q, k, v) != route:
                         continue
                     row = {"route": route, "bucket": bucket,
-                           "shape": [b, h, sq, skv, d]}
+                           "shape": [b, h, sq, skv, d],
+                           "bound_ms": max(chip_smoke.bound_ms(
+                               b, h, sq, skv, d, 2).values())}
                     _build._loaded[source] = libs[route, "intact"]
                     out = flash.flash_attention(q, k, v)
                     err = chip_smoke.kernel_error(torch, flash, q, k, v, out,
@@ -228,6 +324,12 @@ def main() -> int:
                     row[f"{yard}_ms"] = chip_smoke.cuda_ms(
                         torch, lambda: flash.flash_attention(
                             q, k, v, kernel=yard), 10)
+                    same = []
+                    for name in ablations:
+                        _build._loaded[source] = libs[route, name]
+                        if torch.equal(out, flash.flash_attention(q, k, v)):
+                            same.append(name)
+                    row["bit_identical_to_intact"] = same
                     for rnd in range(2):
                         order = (list(ablations) if rnd == 0
                                  else list(ablations)[::-1])
@@ -238,10 +340,21 @@ def main() -> int:
                                     torch,
                                     lambda: flash.flash_attention(q, k, v),
                                     10))
+                    means = {name: statistics.fmean(row[f"{name}_ms"])
+                             for name in ablations}
+                    row["intact_bound_share"] = (row["bound_ms"]
+                                                 / means["intact"])
+                    total = totals.setdefault((route, bucket), {})
+                    for name, ms in (*means.items(), ("bound", row["bound_ms"]),
+                                     ("sdpa", row["sdpa_ms"])):
+                        total[name] = total.get(name, 0.0) + calls * ms
                     print(json.dumps(row), flush=True)
                     del q, k, v, out
                     torch.cuda.empty_cache()
             _build._loaded.pop(source, None)
+    for (route, bucket), total in totals.items():
+        print(json.dumps({"route": route, "bucket": bucket,
+                          "ms_per_batch_or_chunk": total}), flush=True)
     print(f"intact builds within their bound at every shape: {ok}")
     return 0 if ok else 1
 

@@ -68,14 +68,18 @@ MUTANTS = {
 }
 
 
-def build_edited(tmp: Path, edits: dict) -> dict[tuple[str, str], Path]:
+def build_edited(tmp: Path, edits: dict, copies: dict | None = None
+                 ) -> dict[tuple[str, str], Path]:
     """Compile into `tmp`, all at once, one copy of a route's source per
     key (route, name) of `edits`, with that key's list of (text,
-    replacement) pairs applied; each text must occur once. Returns the
+    replacement) pairs applied; each text must occur once. `copies` maps
+    more keys to source files written elsewhere, compiled with the rest
+    (a source includes the headers beside it before csrc/'s). Returns the
     library of each key."""
     from arbius_tpu_torch.ops import _build, flash
 
-    jobs = {}
+    jobs = {key: (src, src.with_suffix(".so"))
+            for key, src in (copies or {}).items()}
     for (route, name), pairs in edits.items():
         text = (_build.CSRC / flash.SOURCES[route]).read_text()
         for old, new in pairs:

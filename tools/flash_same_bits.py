@@ -5,7 +5,8 @@
 
 Needs one CUDA card and nvcc; imports torch and the port only. For each
 bf16 attention shape of chip_smoke.py's 512x512, 768x768 and 640x640
-buckets, in the models' strided views, and each route that the rules of
+buckets and of damo's and zeroscopev2xl's chunks, in the models'
+strided views, and each route that the rules of
 both checkouts let take it (`ops.flash.routes_of`), runs the two
 checkouts' kernels on the same seeded inputs and compares a SHA-256 of
 each output. Each checkout runs in a process of its own and builds its
@@ -64,7 +65,9 @@ def main() -> int:
 
     shapes = sorted({s[:5] for s in (*chip_smoke.MAIN_PATH_SHAPES,
                                      *chip_smoke.BUCKET_768_SHAPES,
-                                     *chip_smoke.BUCKET_640_RAGGED_SHAPES)})
+                                     *chip_smoke.BUCKET_640_RAGGED_SHAPES,
+                                     *chip_smoke.DAMO_SHAPES,
+                                     *chip_smoke.ZEROSCOPE_SHAPES)})
     got = {}
     for root in (HERE, os.path.abspath(sys.argv[1])):
         run = subprocess.run(
