@@ -17,19 +17,53 @@
 // What bounds it on this card: bytes. Each query row meets at most 128
 // keys, ~4 x 128 x D FLOP against 4D bytes of q read and o written, so
 // at 4096 x 77, D = 40 (B*H = 64) reading Q and writing O takes 12.8 us
-// at 3.35 TB/s and the products 3.3 us at 989 TFLOP/s. K and V are small
-// and read once per block.
+// at 3.35 TB/s and the products 3.3 us at 989 TFLOP/s. What keeps it from
+// that bound differs by shape class (tools/flash_ablate.py on an NVIDIA
+// H100 80GB HBM3 at 700 W):
+//   - many 64-row query tiles a b*h (4096 and 9216 x 77 at D = 40,
+//     zeroscopev2xl's 9216 to 576 x 77 at D = 64): each consumer's chain
+//     from tile to tile (wait for Q, S, softmax, P V, O's staging and
+//     store), with the loads alone at 70% of the time (`loads_only`) and
+//     the epilogue's staging and store at ~20% (`no_epilogue`): 38-56% of
+//     the bound. A fourth consumer at D = 40 keeps one more tile in
+//     flight.
+//   - one to four tiles a b*h over thousands of b*h (the video UNet's
+//     256, 64 and 16 x 77, 64^2 and 16^2 at D = 64): a block that served
+//     one b*h paid its own ramp (barriers, K and V, then Q) and drain
+//     (the last store) for those few tiles, with one consumer of three at
+//     work (12-45% of the bound). Persistent blocks walk many b*h, and
+//     the next b*h's K and V land in a free slot while this one's tiles
+//     run.
+//   - fewer tiles than SMs (D = 160's 64^2 and 100^2 at 512x512 and
+//     640x640): one tile's latency, ramp to drain, ~9-11 us a call.
 //
 // Design:
-//   - a block per (b*h, run of 64-row query tiles): a producer warpgroup
-//     (one thread; setmaxnreg gives its registers to the consumers) and
-//     consumer warpgroups (three at D = 40, 64 and 80, two at D = 160) that
-//     take the run's tiles in turn. The producer loads K and V of the
-//     block's (b, h) once by TMA, and they stay resident; the query tiles
-//     stream through TMA stages, each consumer's own (1 to 3 each, as
-//     shared memory allows). The host picks the run length so that the
-//     blocks fill the SMs in whole waves (`tiles_per_block`); a tile's
-//     arithmetic does not depend on it.
+//   - persistent blocks over a flat tile schedule: tile w is (b*h, query
+//     tile) = (w / nq, w % nq), so the tiles of one b*h are neighbours.
+//     The grid is the SM count, or the tiles if fewer (`blocks`: or the
+//     b*h's equal parts where those make no consumer's run longer, so
+//     that neighbouring heads' blocks read the rows they share together),
+//     and each block takes one contiguous range of the tiles: equal
+//     ranges, give or take one, which may start or end inside a b*h. A
+//     range's runs of one b*h are its segments. Tile j of the range goes
+//     to consumer j % kConsumers, across segment boundaries. No atomics
+//     and no tile counter in device memory: the kernel allocates nothing
+//     and is captured in CUDA graphs.
+//   - a producer warpgroup (one thread; setmaxnreg gives its registers to
+//     the consumers) issues every TMA load in the order the consumers need
+//     them: a segment's K and V into K/V slot s % kKVSlots, as many slots
+//     as shared memory holds beside the rest (at most kMaxKVSlots), then
+//     the segment's query tiles into TMA stages that are each consumer's
+//     own (a shared ring let a consumer pass a barrier a phase early). A
+//     slot is refilled once every consumer has moved past its segment:
+//     each consumer waits for every segment's fill and frees it once done
+//     with it, whether or not it took a tile there. Every barrier parity
+//     follows a running count (segments for K/V, a consumer's tiles for
+//     its Q stages), never a count inside one segment, and every tile
+//     index steps on from the last (no division per tile).
+//   - consumer warpgroups: four at D = 40, three at D = 64 and 80, two at
+//     D = 160. The consumer's index is broadcast from lane 0, so the
+//     compiler builds every wgmma descriptor in uniform registers.
 //   - the tensor maps are the models' strided views ([B, S, H*D] seen as
 //     [B, H, S, D]), read in boxes of 64 columns with the 128-byte
 //     swizzle (flash_attn_wgmma.cu says why): columns past D and rows
@@ -43,8 +77,9 @@
 //     shared memory, written out by a TMA store whose reading of the tile
 //     overlaps the consumer's next tile; rows past Sq are not written.
 //   - no split-KV, no atomics, and a query row's arithmetic stays inside
-//     the warpgroup that owns it: results are bit-identical from run to
-//     run and invariant to batch position.
+//     the warpgroup that owns it and does not depend on the block or
+//     consumer that takes its tile, on the slots or on the stages: results
+//     are bit-identical from run to run and invariant to batch position.
 #include "hopper.cuh"
 
 namespace {
@@ -52,21 +87,23 @@ namespace {
 constexpr int kRow = 128;       // bytes of one 64-column block of a row
 constexpr int kTile = 64;       // query rows per tile (a wgmma's M)
 constexpr int kBarO = 1;  // named barrier kBarO + c: consumer c's epilogue
-constexpr int kMaxStages = 8;  // query-tile stages in all, at most
-constexpr int kBudget = 216 * 1024;  // dynamic shared memory, less the slack
+constexpr int kMaxKVSlots = 8;  // K/V slots, at most
+// a block's shared memory (227 KB), less room for the static mbarriers
+constexpr int kSmemMax = 227 * 1024 - 256;
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 template <int D, int NK>
 struct Layout {
-  // consumer warpgroups: three at D = 40, 64 and 80, where a third keeps
-  // more tiles in flight (tools/flash_ablate.py times two), two at
-  // D = 160, whose accumulators need the registers; registers per thread
-  // after setmaxnreg (65536 in all on the SM)
-  static constexpr int kConsumers = D == 160 ? 2 : 3;
+  // consumer warpgroups, each with a tile in flight: four at D = 40, whose
+  // accumulators fit 112 registers (four were 1.06x faster than three at
+  // 4096 and 9216 x 77, tools/flash_ablate.py), three at D = 64 and 80,
+  // two at D = 160, whose accumulators need the registers; registers per
+  // thread after setmaxnreg (65536 in all on the SM)
+  static constexpr int kConsumers = D == 40 ? 4 : D == 160 ? 2 : 3;
   static constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer
   static constexpr int kProducerRegs = D == 40 ? 24 : 40;
-  static constexpr int kConsumerRegs = D == 40 ? 160 : D == 160 ? 232 : 152;
+  static constexpr int kConsumerRegs = D == 40 ? 112 : D == 160 ? 232 : 152;
   static_assert(regs_balance(kThreads, kConsumers, kProducerRegs,
                              kConsumerRegs),
                 "setmaxnreg cannot give the consumers these registers");
@@ -74,25 +111,30 @@ struct Layout {
   static constexpr int kSteps = (D + 15) / 16;     // k16 steps of Q K^T
   static constexpr int kQ = kBlocks * kTile * kRow;  // bytes of a Q tile
   static constexpr int kKV = kBlocks * NK * kRow;    // bytes of K (or V)
-  // bytes of one consumer's O staging tile ([kTile][D] bf16), 1024-aligned
+  // bytes of one O staging tile ([kTile][D] bf16), 1024-aligned
   static constexpr int kO = (kTile * D * 2 + 1023) & ~1023;
-  static constexpr int kFree = kBudget - 2 * kKV - kConsumers * kO;
-  // query-tile stages per consumer, as many as fit: each consumer has
-  // its own, so that it waits on a stage's barrier only for the fill
-  // after the one it consumed last (a barrier's parity tells a phase
-  // from the next, not from the one after that)
-  static constexpr int kPer =
-      cmin(kFree / (kQ * kConsumers), kMaxStages / kConsumers);
-  static_assert(kPer >= 1, "no query-tile stage fits");
-  static constexpr int kStages = kPer * kConsumers;
-  // K, V, the Q ring, the O tiles, and slack to align the base to 1024
-  static constexpr int kSmem = 2 * kKV + kStages * kQ + kConsumers * kO + 1024;
+  // Q stages per consumer: two at D = 64, one elsewhere (D = 40 and 80
+  // timed faster with one, and at D = 160 a second would leave one K/V
+  // slot, none at NK = 128)
+  static constexpr int kQStages = D == 64 ? 2 : 1;
+  // the Q stages, an O staging tile per consumer and the slack that
+  // aligns the base to 1024
+  static constexpr int kFixed = kConsumers * (kQStages * kQ + kO) + 1024;
+  // K/V slots (K and V of one b*h each), as many as fit beside those
+  static constexpr int kKVSlots =
+      cmin(kMaxKVSlots, (kSmemMax - kFixed) / (2 * kKV));
+  static_assert(kKVSlots >= 1, "no K/V slot fits");
+  static constexpr int kSmem = kFixed + kKVSlots * 2 * kKV;
+  static_assert(kSmem <= kSmemMax,
+                "the K/V slots, Q stages and O tiles exceed a block's "
+                "shared memory");
 };
 
-template <int D, int NK>
+template <class L>
 struct Barriers {
-  uint64_t kv;
-  uint64_t full[Layout<D, NK>::kStages], empty[Layout<D, NK>::kStages];
+  uint64_t kv_full[L::kKVSlots], kv_empty[L::kKVSlots];
+  uint64_t q_full[L::kConsumers * L::kQStages];
+  uint64_t q_empty[L::kConsumers * L::kQStages];
 };
 
 template <int D, int NK>
@@ -101,82 +143,131 @@ __global__ void __launch_bounds__(Layout<D, NK>::kThreads, 1)
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const __grid_constant__ CUtensorMap to,
-                             const Params p, int per_block) {
+                             const Params p, int per, int extra) {
   using L = Layout<D, NK>;
-  constexpr int kS = NK / 2;  // score accumulators per thread
+  constexpr int kS = NK / 2;   // score accumulators per thread
   constexpr int kOut = D / 2;  // output accumulators per thread
+  constexpr int kC = L::kConsumers;
+  constexpr int kSlots = L::kKVSlots;
 
   extern __shared__ unsigned char smem_raw[];
-  __shared__ Barriers<D, NK> bars;
-  const uint32_t sK = (smem_addr(smem_raw) + 1023) & ~1023u;  // [blk][NK]
-  const uint32_t sV = sK + L::kKV;                            // [blk][NK]
-  const uint32_t sQ = sV + L::kKV;            // [stage][blk][kTile][kRow]
-  const uint32_t sO = sQ + L::kStages * L::kQ;  // [consumer][kTile][D]
+  __shared__ Barriers<L> bars;
+  // [slot][K, V][blk][NK][kRow]
+  const uint32_t sKV = (smem_addr(smem_raw) + 1023) & ~1023u;
+  // [consumer][stage][blk][kTile][kRow]
+  const uint32_t sQ = sKV + kSlots * 2 * L::kKV;
+  // [consumer][kTile][D]
+  const uint32_t sO = sQ + kC * L::kQStages * L::kQ;
 
-  const int bh = blockIdx.y;
-  const int b = bh / p.heads;
-  const int h = bh - b * p.heads;
-  const int first = blockIdx.x * per_block;  // the block's first query tile
-  const int tiles = (p.sq + kTile - 1) / kTile;
-  const int ntile = min(per_block, tiles - first);
+  // the block's tiles [t0, t0 + n) of the flat schedule: `per` each, and
+  // one more for the first `extra` blocks; nq a b*h; its segments are b*h
+  // bh0, bh0 + 1, ...
+  const int nq = (p.sq + kTile - 1) / kTile;
+  const int bi = blockIdx.x;
+  const int t0 = bi * per + (bi < extra ? bi : extra);
+  const int n = per + (bi < extra);
+  const int bh0 = t0 / nq;
   const int kv_end = p.skv;  // keys at or past this are masked
   const float sl2 = p.scale * kLog2e;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    mbar_init(smem_addr(&bars.kv), 1);
-    for (int s = 0; s < L::kStages; ++s) {
-      mbar_init(smem_addr(&bars.full[s]), 1);
-      mbar_init(smem_addr(&bars.empty[s]), 128);
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(smem_addr(&bars.kv_full[s]), 1);
+      mbar_init(smem_addr(&bars.kv_empty[s]), 128 * kC);
+    }
+    for (int s = 0; s < kC * L::kQStages; ++s) {
+      mbar_init(smem_addr(&bars.q_full[s]), 1);
+      mbar_init(smem_addr(&bars.q_empty[s]), 128);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
   if (wg == 0) {
-    // -- producer: one thread issues every TMA load -------------------------
+    // -- producer: one thread issues every TMA load, in the order the
+    // consumers need them: a segment's K and V, then its query tiles
+    // (every index steps on from the last; no division per tile)
     setmaxnreg_dec<L::kProducerRegs>();
     if (threadIdx.x == 0) {
-      const uint32_t bkv = smem_addr(&bars.kv);
-      mbar_arrive_expect_tx(bkv, 2 * L::kKV);
-      for (int c = 0; c < L::kBlocks; ++c) {  // keys past S_kv read as zeros
-        tma_load_4d(sK + c * NK * kRow, &tk, bkv, 64 * c, 0, h, b);
-        tma_load_4d(sV + c * NK * kRow, &tv, bkv, 64 * c, 0, h, b);
-      }
-      for (int j = 0; j < ntile; ++j) {
-        // the i-th tile of consumer j % kConsumers: its stage and fill
-        const int i = j / L::kConsumers;
-        const int st = (j % L::kConsumers) * L::kPer + i % L::kPer;
-        const uint32_t full = smem_addr(&bars.full[st]);
-        mbar_wait(smem_addr(&bars.empty[st]), ((i / L::kPer) & 1) ^ 1);
+      // tile j: query tile qt of b*h (b, h) in segment s, the i-th tile of
+      // consumer c
+      int qt = t0 - bh0 * nq, b = bh0 / p.heads, h = bh0 - b * p.heads;
+      for (int j = 0, c = 0, i = 0, s = -1; j < n; ++j) {
+        if (j == 0 || qt == 0) {  // a segment's first tile: K and V first
+          ++s;
+          const uint32_t slot = sKV + (s % kSlots) * 2 * L::kKV;
+          const uint32_t full = smem_addr(&bars.kv_full[s % kSlots]);
+          mbar_wait(smem_addr(&bars.kv_empty[s % kSlots]),
+                    ((s / kSlots) & 1) ^ 1);
+          mbar_arrive_expect_tx(full, 2 * L::kKV);
+          for (int x = 0; x < L::kBlocks; ++x) {  // keys past S_kv read as 0
+            tma_load_4d(slot + x * NK * kRow, &tk, full, 64 * x, 0, h, b);
+            tma_load_4d(slot + L::kKV + x * NK * kRow, &tv, full, 64 * x, 0,
+                        h, b);
+          }
+        }
+        const int st = c * L::kQStages + i % L::kQStages;
+        const uint32_t full = smem_addr(&bars.q_full[st]);
+        mbar_wait(smem_addr(&bars.q_empty[st]),
+                  ((i / L::kQStages) & 1) ^ 1);
         mbar_arrive_expect_tx(full, L::kQ);
-        for (int c = 0; c < L::kBlocks; ++c)  // rows past Sq read as zeros
-          tma_load_4d(sQ + st * L::kQ + c * kTile * kRow, &tq, full, 64 * c,
-                      (first + j) * kTile, h, b);
+        for (int x = 0; x < L::kBlocks; ++x)  // rows past Sq read as zeros
+          tma_load_4d(sQ + st * L::kQ + x * kTile * kRow, &tq, full, 64 * x,
+                      qt * kTile, h, b);
+        if (++qt == nq) {
+          qt = 0;
+          if (++h == p.heads) h = 0, ++b;
+        }
+        if (++c == kC) c = 0, ++i;
       }
     }
   } else {
-    // -- consumers: tiles c, c + kConsumers, ... of the block's run --------
+    // -- consumers: tiles c, c + kC, ... of the block's range --------------
     setmaxnreg_inc<L::kConsumerRegs>();
-    const int c = wg - 1;
+    // the consumer, broadcast from lane 0 so that the compiler knows it (and
+    // every tile index and shared-memory address derived from it) is one
+    // value across the warp: the wgmma descriptors are then built in
+    // uniform registers, not moved there before each product
+    const int c = __shfl_sync(0xffffffffu, wg - 1, 0);
     const int t = threadIdx.x & 127;
     const int lane = threadIdx.x & 31;
     const int warp = (threadIdx.x >> 5) & 3;
-    const uint32_t my_o = sO + c * L::kO;
 
-    mbar_wait(smem_addr(&bars.kv), 0);
-    for (int j = c; j < ntile; j += L::kConsumers) {
-      const int i = j / L::kConsumers;  // this consumer's i-th tile
-      const int st = c * L::kPer + i % L::kPer;
-      mbar_wait(smem_addr(&bars.full[st]), (i / L::kPer) & 1);
+    // the segments before s are freed, each after its fill, whether or
+    // not this consumer took a tile there: a slot's next fill must not
+    // count an arrival meant for this one, and no phase of a fill barrier
+    // is skipped (a parity tells a phase from the next, not from the one
+    // after that)
+    int s = 0;
+    auto free_to = [&](int seg) {
+      for (; s < seg; ++s) {
+        mbar_wait(smem_addr(&bars.kv_full[s % kSlots]), (s / kSlots) & 1);
+        mbar_arrive(smem_addr(&bars.kv_empty[s % kSlots]));
+      }
+    };
+    // tile j is query tile qt of b*h bh (qt steps on by kC a tile)
+    int bh = bh0, qt = t0 - bh0 * nq + c;
+    uint32_t sK = sKV;  // K of segment s; V follows it
+    for (int j = c, i = 0; j < n; j += kC, ++i, qt += kC) {
+      while (qt >= nq) qt -= nq, ++bh;
+      if (j == c || bh - bh0 != s) {  // the first tile of a segment
+        free_to(bh - bh0);
+        mbar_wait(smem_addr(&bars.kv_full[s % kSlots]), (s / kSlots) & 1);
+        sK = sKV + (s % kSlots) * 2 * L::kKV;
+      }
+      const uint32_t sV = sK + L::kKV;
+      const int q0 = qt * kTile;
+      const int st = c * L::kQStages + i % L::kQStages;
+      mbar_wait(smem_addr(&bars.q_full[st]), (i / L::kQStages) & 1);
 
       // S = Q K^T over the whole (padded) key sequence
-      float s[kS];
+      float s_acc[kS];
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < L::kSteps; ++ks) {
         const uint32_t blk = ks / 4, off = (ks % 4) * 32;
-        wgmma_ss<NK>(s,
+        wgmma_ss<NK>(s_acc,
                      desc_sw128(sQ + st * L::kQ + blk * kTile * kRow + off,
                                 16, 1024),
                      desc_sw128(sK + blk * NK * kRow + off, 16, 1024),
@@ -185,22 +276,22 @@ __global__ void __launch_bounds__(Layout<D, NK>::kThreads, 1)
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < kS; ++i) fence_reg(s[i]);
-      mbar_arrive(smem_addr(&bars.empty[st]));  // the Q stage is free
+      for (int e = 0; e < kS; ++e) fence_reg(s_acc[e]);
+      mbar_arrive(smem_addr(&bars.q_empty[st]));  // the Q stage is free
 
       // softmax in the log2 domain over one tile; a row's 4 owners are a
-      // quad: rows lane/4 (+8), 8-key column tiles j: s[4j..4j+3]
+      // quad: rows lane/4 (+8), 8-key column tiles x: s_acc[4x..4x+3]
       if (kv_end < NK) {
 #pragma unroll
-        for (int i = 0; i < kS; ++i)
-          if ((i >> 2) * 8 + 2 * (lane & 3) + (i & 1) >= kv_end)
-            s[i] = -INFINITY;
+        for (int e = 0; e < kS; ++e)
+          if ((e >> 2) * 8 + 2 * (lane & 3) + (e & 1) >= kv_end)
+            s_acc[e] = -INFINITY;
       }
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int q = 0; q < kS / 4; ++q) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[4 * q], s[4 * q + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[4 * q + 2], s[4 * q + 3]));
+      for (int x = 0; x < kS / 4; ++x) {
+        mx[0] = fmaxf(mx[0], fmaxf(s_acc[4 * x], s_acc[4 * x + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s_acc[4 * x + 2], s_acc[4 * x + 3]));
       }
       float msc[2], l[2];
 #pragma unroll
@@ -210,14 +301,14 @@ __global__ void __launch_bounds__(Layout<D, NK>::kThreads, 1)
         msc[r] = mx[r] * sl2;
       }
 #pragma unroll
-      for (int i = 0; i < kS; ++i)
-        s[i] = ex2(fmaf(s[i], sl2, -msc[(i >> 1) & 1]));
+      for (int e = 0; e < kS; ++e)
+        s_acc[e] = ex2(fmaf(s_acc[e], sl2, -msc[(e >> 1) & 1]));
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float rs = 0.f;
 #pragma unroll
-        for (int q = 0; q < kS / 4; ++q)
-          rs += s[4 * q + 2 * r] + s[4 * q + 2 * r + 1];
+        for (int x = 0; x < kS / 4; ++x)
+          rs += s_acc[4 * x + 2 * r] + s_acc[4 * x + 2 * r + 1];
         l[r] = rs;
       }
 
@@ -226,14 +317,14 @@ __global__ void __launch_bounds__(Layout<D, NK>::kThreads, 1)
       uint32_t pa[NK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < NK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        pa[kk][0] = pack_bf16(s_acc[8 * kk], s_acc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
       }
       float o[kOut];
 #pragma unroll
-      for (int i = 0; i < kOut; ++i) o[i] = 0.f;
+      for (int e = 0; e < kOut; ++e) o[e] = 0.f;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < NK / 16; ++kk)
@@ -242,7 +333,7 @@ __global__ void __launch_bounds__(Layout<D, NK>::kThreads, 1)
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < kOut; ++i) fence_reg(o[i]);
+      for (int e = 0; e < kOut; ++e) fence_reg(o[e]);
 #pragma unroll
       for (int kk = 0; kk < NK / 16; ++kk)
 #pragma unroll
@@ -254,49 +345,52 @@ __global__ void __launch_bounds__(Layout<D, NK>::kThreads, 1)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       }
       // the epilogue: this consumer's previous store must have read its
-      // staging tile before the tile is written again
+      // staging tile before O / l is written there as bf16
+      const uint32_t my_o = sO + c * L::kO;
       if (t == 0) bulk_wait_read<0>();
       named_sync(kBarO + c, 128);
       const int row = 16 * warp + (lane >> 2);
 #pragma unroll
-      for (int q = 0; q < kOut / 4; ++q) {
-        const int col = 8 * q + 2 * (lane & 3);
+      for (int x = 0; x < kOut / 4; ++x) {
+        const int col = 8 * x + 2 * (lane & 3);
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
                            my_o + ((row + 8 * r) * D + col) * 2),
-                       "r"(pack_bf16(o[4 * q + 2 * r] / l[r],
-                                     o[4 * q + 2 * r + 1] / l[r]))
+                       "r"(pack_bf16(o[4 * x + 2 * r] / l[r],
+                                     o[4 * x + 2 * r + 1] / l[r]))
                        : "memory");
       }
       fence_proxy_async();
       named_sync(kBarO + c, 128);
-      if (t == 0) {
-        tma_store_3d(&to, my_o, 0, (first + j) * kTile, bh);
+      if (t == 0) {  // rows past Sq are not written
+        tma_store_3d(&to, my_o, 0, q0, bh);
         bulk_commit();
       }
     }
-    if (t == 0) bulk_wait<0>();  // the last store, before the block exits
+    free_to((t0 + n - 1) / nq - bh0 + 1);  // the segments left
+    // the last stores have read their staging tiles before the block
+    // exits (their writes complete with the grid)
+    if (t == 0) bulk_wait_read<0>();
   }
 }
 
-// Query tiles per block: the run length that finishes soonest with one
-// block per SM, counting a block's time as its tile loads plus its K and
-// V loads (`kv_tiles`, in tiles' worth of rows) and the blocks in whole
-// waves; on a tie the longer run (fewer K/V loads).
-int tiles_per_block(int tiles, int bh, int kv_tiles) {
-  const long long sms = sm_count();
-  int best = tiles;
-  long long best_cost = -1;
-  for (int per = tiles; per >= 1; --per) {
-    const long long blocks = (long long)bh * ((tiles + per - 1) / per);
-    const long long cost = (blocks + sms - 1) / sms * (per + kv_tiles);
-    if (best_cost < 0 || cost < best_cost) {
-      best = per;
-      best_cost = cost;
-    }
-  }
-  return best;
+// The blocks of the flat schedule: one per SM, or per tile where there are
+// fewer. Where a b*h's nq query tiles split into `parts` equal ranges whose
+// longest consumer run is the SM count's, bh * parts blocks of those: the
+// blocks of neighbouring heads then start at the same query tile and read
+// the rows the heads share together (a D = 40 head's 80-byte row shares
+// 32-byte sectors with its neighbours').
+int blocks(int bh, int nq, int consumers) {
+  const int work = bh * nq;
+  const int grid = work < sm_count() ? work : sm_count();
+  const int per = (work + grid - 1) / grid;  // the longest range
+  const int parts = per < nq ? nq / per : 0;
+  const int run = (per + consumers - 1) / consumers;
+  if (parts > 0 && nq % parts == 0 &&
+      (nq / parts + consumers - 1) / consumers == run)
+    return bh * parts;
+  return grid;
 }
 
 template <int D, int NK>
@@ -322,11 +416,13 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
                      p.v_ss, NK);
   if (err == 0) err = encode_out_map(&to, p.o, bh, p.sq, D, kTile);
   if (err != 0) return err;
-  const int tiles = (p.sq + kTile - 1) / kTile;
-  const int per = tiles_per_block(tiles, bh, (2 * NK + kTile - 1) / kTile);
-  const dim3 grid((tiles + per - 1) / per, bh);
-  flash_wgmma_short_kernel<D, NK>
-      <<<grid, L::kThreads, L::kSmem, stream>>>(tq, tk, tv, to, p, per);
+  // each block takes work / grid tiles, the first work % grid one more (an
+  // int: 2^31 tiles of 64 rows would not fit in device memory)
+  const int nq = (p.sq + kTile - 1) / kTile;
+  const int work = bh * nq;
+  const int grid = blocks(bh, nq, L::kConsumers);
+  flash_wgmma_short_kernel<D, NK><<<grid, L::kThreads, L::kSmem, stream>>>(
+      tq, tk, tv, to, p, work / grid, work % grid);
   return (int)cudaGetLastError();
 }
 

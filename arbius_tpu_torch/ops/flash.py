@@ -14,10 +14,13 @@ aligned data (their loads are 16-byte copies or TMA boxes):
     written by TMA stores, for D = 40, 64, 80 and 160 at any lengths.
     The UNets' self-attentions over more than 128 keys take it.
   - ``tensor_core_wgmma_short`` (``csrc/flash_attn_wgmma_short.cu``):
-    wgmma over one key tile, K and V resident and the query tiles
-    streamed through a TMA ring, O written by TMA stores, for D = 40, 64,
-    80 and 160 with Skv <= 128. The UNets' 77-key cross-attentions and
-    their self-attentions of 128 tokens or fewer take it.
+    wgmma over one key tile, in persistent blocks (one per SM) that each
+    walk one contiguous range of the (b*h, query tile) tiles, each b*h's
+    K and V loaded once into slots as deep as shared memory allows and
+    the query tiles streamed through TMA stages, O written by TMA stores,
+    for D = 40, 64, 80 and 160 with Skv <= 128. The UNets' 77-key
+    cross-attentions and their self-attentions of 128 tokens or fewer
+    take it.
   - ``tensor_core_wgmma_wide`` (``csrc/flash_attn_wgmma_wide.cu``): wgmma
     for D = 512 at any lengths, two consumer warpgroups splitting O by
     columns, each K/V box loaded once per thread-block cluster and
@@ -126,10 +129,12 @@ def routes(dtype: torch.dtype, d: int, strides, pointers, sq: int,
     128, "tensor_core_wgmma" d in {40, 64, 80, 160}, "tensor_core" 8 <= d <= 160
     with d % 8 == 0, and "tensor_core_wgmma_wide" then "tensor_core_wide"
     d = 512. "cuda_core" takes every call. The short route comes before
-    the wgmma one wherever both take a call: on the H100 it was 1.2-2.2x
-    faster at every anythingv3 shape of at most 128 keys (PERF.md
-    section 6); the wgmma wide route comes before the mma.sync one for
-    the same reason at the VAE's shapes."""
+    the wgmma one wherever both take a call: on the H100 it was faster
+    than the wgmma route forced onto the same calls at every shape of at
+    most 128 keys that the templates' buckets give, 1.07-1.44x at
+    anythingv3's and 1.16-3.3x at the video UNet's (PERF.md section 6);
+    the wgmma wide route comes before the mma.sync one for the same
+    reason at the VAE's shapes."""
     out = []
     if (dtype == torch.bfloat16 and all(s % 8 == 0 for s in strides)
             and all(ptr % 16 == 0 for ptr in pointers)):

@@ -66,12 +66,18 @@ _WGMMA_SHAPES = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
                  (192, 20, 144, 144, 64), (1, 3, 300, 700, 64)]
 # the 77-key cross-attentions at 512x512 and 768x768, short
 # self-attentions, and ragged query lengths and key widths (N = 16, 32,
-# 64, 80, 128)
+# 64, 80, 128); block ranges that start inside a b*h (560 tiles over the
+# SMs); one tile per b*h at many b*h (the video UNet's 16^2 and 64 x 77);
+# blocks with fewer tiles than consumers, over two b*h; N = 128 at
+# D = 160, whose one K/V slot two b*h of a block take in turn
 _SHORT_SHAPES = [(8, 8, 4096, 77, 40), (8, 8, 1024, 77, 80),
                  (8, 8, 256, 77, 160), (8, 8, 64, 64, 160),
                  (8, 8, 9216, 77, 40), (1, 2, 200, 16, 40),
                  (2, 3, 100, 30, 80), (2, 3, 100, 100, 160),
-                 (1, 1, 4, 4, 160), (1, 2, 333, 128, 80)]
+                 (1, 1, 4, 4, 160), (1, 2, 333, 128, 80),
+                 (5, 7, 1000, 77, 64), (64, 20, 16, 16, 64),
+                 (64, 20, 64, 77, 64), (2, 100, 64, 77, 40),
+                 (2, 3, 100, 128, 160), (4, 40, 64, 128, 160)]
 
 
 @pytest.mark.parametrize("route,dtype,b,h,sq,skv,d", [

@@ -12,10 +12,12 @@ csrc/flash_attn_wgmma_wide.cu), or the ROUTEs named, builds its source
 and each copy (flash_mutants.py's build), checks the intact build against
 the plain version within ops/flash.py's `error_bound`, and times every
 build, in two rounds in opposite orders, at each shape the route takes at
-512x512 and 768x768 and in damo's and zeroscopev2xl's chunks
-(`buckets`), in the models' strided views, beside the
-route it replaced (YARDSTICK: mma.sync, or mma.sync's wide kernel), SDPA
-and the shape's bound (`chip_smoke.bound_ms`). With `--against`, the
+512x512, 768x768 and 640x640's ragged lengths and in damo's and
+zeroscopev2xl's chunks (`buckets`), in the models' strided views, beside
+the routes forced onto the same calls as yardsticks (YARDSTICKS:
+mma.sync, or mma.sync's wide kernel, and for the short route the wgmma
+one too), SDPA and the shape's bound (`chip_smoke.bound_ms`). With
+`--against`, the
 other checkout's source of each route (the parent commit unpacked with
 `git archive`), built with that checkout's own headers, is one more
 build in both rounds. Each time is the card's, from `chip_smoke.cuda_ms`:
@@ -25,8 +27,9 @@ wrong results; only its time is read: the time it saves is what the
 part taken out costs where nothing else takes its place. Prints one JSON
 line per shape (each build's times, the bound's share of the intact
 build's mean, and the builds whose output has the intact build's bits),
-then per bucket each build's mean time summed over one anythingv3 batch
-or one video chunk's calls; exit 0 if the intact build passes its check.
+then per bucket each build's and yardstick's mean time summed over one
+anythingv3 batch or one video chunk's calls; exit 0 if the intact build
+passes its check.
 """
 from __future__ import annotations
 
@@ -182,15 +185,62 @@ ABLATIONS = {
     "tensor_core_wgmma": WGMMA_ABLATIONS,
     "tensor_core_wgmma_short": {
         "intact": [],
-        # two consumer warpgroups at D = 40, 64 and 80 too, as at D = 160
+        # two consumer warpgroups at every D, as at D = 160
         "two_consumers": [
-            ("kConsumers = D == 160 ? 2 : 3;", "kConsumers = 2;"),
+            ("kConsumers = D == 40 ? 4 : D == 160 ? 2 : 3;", "kConsumers = 2;"),
             ("kProducerRegs = D == 40 ? 24 : 40;", "kProducerRegs = 40;"),
-            ("kConsumerRegs = D == 40 ? 160 : D == 160 ? 232 : 152;",
+            ("kConsumerRegs = D == 40 ? 112 : D == 160 ? 232 : 152;",
              "kConsumerRegs = 232;")],
-        # one query-tile stage per consumer, not two or three
-        "one_stage_each": [("constexpr int kMaxStages = 8;",
-                            "constexpr int kMaxStages = 3;")],
+        # three at D = 40, as at D = 64 and 80 (160 registers each)
+        "three_consumers_d40": [
+            ("kConsumers = D == 40 ? 4 : D == 160 ? 2 : 3;",
+             "kConsumers = D == 160 ? 2 : 3;"),
+            ("kConsumerRegs = D == 40 ? 112 : D == 160 ? 232 : 152;",
+             "kConsumerRegs = D == 40 ? 160 : D == 160 ? 232 : 152;")],
+        # the consumers release each Q stage as it lands: the loads alone
+        "loads_only": [
+            ("      mbar_wait(smem_addr(&bars.q_full[st]), (i / L::kQStages)"
+             " & 1);\n",
+             "      mbar_wait(smem_addr(&bars.q_full[st]), (i / L::kQStages)"
+             " & 1);\n      mbar_arrive(smem_addr(&bars.q_empty[st]));\n"
+             "      continue;\n")],
+        # no O staging and no store
+        "no_epilogue": [
+            ("      if (t == 0) bulk_wait_read<0>();\n      named_sync(",
+             "      if (l[0] != -1.f) continue;\n"
+             "      if (t == 0) bulk_wait_read<0>();\n      named_sync(")],
+        # one K/V slot: the next b*h's K and V wait for this one's tiles
+        "one_kv_slot": [("constexpr int kMaxKVSlots = 8;",
+                         "constexpr int kMaxKVSlots = 1;")],
+        # two Q stages per consumer at D = 40 and 80 too
+        "two_q_stages": [("kQStages = D == 64 ? 2 : 1;",
+                          "kQStages = D == 160 ? 1 : 2;")],
+        # the grid the SM count (or the tiles) at every shape, not equal
+        # ranges aligned to the b*h where they cost no longer run
+        "sm_count_grid": [
+            ("  const int grid = blocks(bh, nq, L::kConsumers);",
+             "  const int grid = work < sm_count() ? work : sm_count();")],
+        # S = Q K^T not issued (S zero, so that the softmax and O / l see
+        # ordinary values): what an S issued before the last tile's
+        # epilogue could hide, at most
+        "no_qk": [("        wgmma_ss<NK>(s_acc,",
+                   "        if (ks < 0) wgmma_ss<NK>(s_acc,"),
+                  ("      float s_acc[kS];\n",
+                   "      float s_acc[kS];\n"
+                   "      for (int e = 0; e < kS; ++e) s_acc[e] = 0.f;\n")],
+        # two O staging tiles per consumer in turn: a store's reading of
+        # one overlaps the next tile's epilogue
+        "two_o_stages": [
+            ("kFixed = kConsumers * (kQStages * kQ + kO) + 1024;",
+             "kFixed = kConsumers * (kQStages * kQ + 2 * kO) + 1024;"),
+            ("      const uint32_t my_o = sO + c * L::kO;",
+             "      const uint32_t my_o = sO + (2 * c + i % 2) * L::kO;"),
+            ("      if (t == 0) bulk_wait_read<0>();\n      named_sync(",
+             "      if (t == 0) bulk_wait_read<1>();\n      named_sync(")],
+        # one block per tile, not persistent
+        "a_block_per_tile": [
+            ("  const int grid = blocks(bh, nq, L::kConsumers);",
+             "  const int grid = work;")],
     },
     "tensor_core_wgmma_wide": {
         "intact": [],
@@ -218,17 +268,19 @@ ABLATIONS = {
         "qk_split_over_d": _WIDE_QK_SPLIT,
     },
 }
-# the route each one replaced on the main path, timed beside it
-YARDSTICK = {"tensor_core_wgmma": "tensor_core",
-             "tensor_core_wgmma_short": "tensor_core",
-             "tensor_core_wgmma_wide": "tensor_core_wide"}
+# routes forced onto each route's calls and timed beside it: the one it
+# replaced on the main path, and for the short route the wgmma route too
+YARDSTICKS = {"tensor_core_wgmma": ("tensor_core",),
+              "tensor_core_wgmma_short": ("tensor_core", "tensor_core_wgmma"),
+              "tensor_core_wgmma_wide": ("tensor_core_wide",)}
 
 
 def buckets() -> tuple:
-    """(bucket, shapes) timed: anythingv3's 512x512 and 768x768, and the
-    chunks of damo and zeroscopev2xl."""
+    """(bucket, shapes) timed: anythingv3's 512x512 and 768x768, 640x640's
+    ragged lengths, and the chunks of damo and zeroscopev2xl."""
     return (("512x512", chip_smoke.MAIN_PATH_SHAPES),
             ("768x768", chip_smoke.BUCKET_768_SHAPES),
+            ("640x640", chip_smoke.BUCKET_640_RAGGED_SHAPES),
             ("damo 256x256x16", chip_smoke.DAMO_SHAPES),
             ("zeroscopev2xl 1024x576x24", chip_smoke.ZEROSCOPE_SHAPES))
 
@@ -320,10 +372,10 @@ def main() -> int:
                     row["sdpa_ms"] = chip_smoke.cuda_ms(
                         torch,
                         lambda: F.scaled_dot_product_attention(q, k, v), 10)
-                    yard = YARDSTICK[route]
-                    row[f"{yard}_ms"] = chip_smoke.cuda_ms(
-                        torch, lambda: flash.flash_attention(
-                            q, k, v, kernel=yard), 10)
+                    for yard in YARDSTICKS[route]:
+                        row[f"{yard}_ms"] = chip_smoke.cuda_ms(
+                            torch, lambda: flash.flash_attention(
+                                q, k, v, kernel=yard), 10)
                     same = []
                     for name in ablations:
                         _build._loaded[source] = libs[route, name]
@@ -346,7 +398,9 @@ def main() -> int:
                                                  / means["intact"])
                     total = totals.setdefault((route, bucket), {})
                     for name, ms in (*means.items(), ("bound", row["bound_ms"]),
-                                     ("sdpa", row["sdpa_ms"])):
+                                     ("sdpa", row["sdpa_ms"]),
+                                     *((y, row[f"{y}_ms"])
+                                       for y in YARDSTICKS[route])):
                         total[name] = total.get(name, 0.0) + calls * ms
                     print(json.dumps(row), flush=True)
                     del q, k, v, out
