@@ -1,6 +1,13 @@
-"""arbius-tpu port CLI — the twins of arbius_tpu/cli.py's node and ops
-commands.
+"""arbius-tpu port CLI — the twins of arbius_tpu/cli.py's commands.
 
+  templates         list bundled model templates
+  template <name>   inspect a template's schema
+  validate-config   parse + schema-check a MiningConfig.json
+  cid <file>        L0 CID of a file's bytes (generateIPFSCID parity)
+  commitment        generateCommitment(address, taskid, cid)
+  emission          targetTs/diffMul/reward table for a time/supply
+  convert-checkpoint published weights (.safetensors, .bin, .pt, .pth) ->
+                 the one-file checkpoint `ModelConfig.checkpoint` names
   demo-mine      end-to-end local mine: in-process chain + SD-1.5,
                  task -> solve -> commit -> reveal -> claim, full width
                  on the card by default, or `--tiny --device cpu`
@@ -84,6 +91,232 @@ def _governor_address(dep) -> str:
     return GOVERNOR_ADDRESS
 
 
+def cmd_templates(args) -> int:
+    from arbius_tpu_torch.templates.engine import load_template, template_names
+
+    for name in template_names():
+        t = load_template(name)
+        print(f"{name}: {t.title} -> "
+              f"{', '.join(o.filename for o in t.outputs)}")
+    return 0
+
+
+def cmd_template(args) -> int:
+    from arbius_tpu_torch.templates.engine import load_template
+
+    t = load_template(args.name)
+    print(json.dumps({
+        "title": t.title,
+        "inputs": [{"variable": f.variable, "type": f.type,
+                    "required": f.required, "default": f.default}
+                   for f in t.inputs],
+        "outputs": [{"filename": o.filename, "type": o.type}
+                    for o in t.outputs],
+    }, indent=2))
+    return 0
+
+
+def cmd_validate_config(args) -> int:
+    from arbius_tpu_torch.node.config import ConfigError, load_config
+
+    try:
+        cfg = load_config(open(args.path).read())
+    except (OSError, json.JSONDecodeError, ConfigError) as e:
+        print(f"INVALID: {e}", file=sys.stderr)
+        return 1
+    print(f"OK: {len(cfg.models)} model(s), automine="
+          f"{cfg.automine.enabled}, db={cfg.db_path}")
+    return 0
+
+
+def cmd_cid(args) -> int:
+    from arbius_tpu_torch.l0.cid import cid_base58, cid_hex, dag_of_file
+
+    data = open(args.path, "rb").read()
+    node = dag_of_file(data)
+    print(json.dumps({"cid": cid_base58(node.cid),
+                      "hex": cid_hex(node.cid), "size": len(data)}))
+    return 0
+
+
+def cmd_commitment(args) -> int:
+    from arbius_tpu_torch.l0.commitment import generate_commitment_hex
+
+    print(generate_commitment_hex(args.address, args.taskid, args.cid))
+    return 0
+
+
+def cmd_emission(args) -> int:
+    from arbius_tpu_torch.chain.fixedpoint import (
+        WAD,
+        diff_mul,
+        reward,
+        target_ts,
+    )
+
+    t = args.t
+    ts = _wad(args.supply)
+    out = {"t": t, "targetTs": target_ts(t) / WAD}
+    if ts > 0 and t > 0:
+        out["diffMul"] = diff_mul(t, ts) / WAD
+        out["reward"] = reward(t, ts) / WAD
+    print(json.dumps(out, sort_keys=True))
+    return 0
+
+
+def _load_torch_state_dict(path: str) -> dict:
+    """Published checkpoint file -> flat {key: numpy} dict.
+
+    Accepts .safetensors (read by utils/checkpoint.py's own reader: no
+    package) or torch pickle (.bin/.pt/.pth, weights_only); unwraps
+    torch-hub style {'state_dict': ...} envelopes; bf16/fp16 tensors are
+    upcast to f32 on BOTH paths (numpy has no bf16, and the two
+    distribution formats of the same weights must convert to the same
+    artifact)."""
+    import torch
+
+    from arbius_tpu_torch.utils.checkpoint import load_safetensors
+
+    if path.endswith(".safetensors"):
+        obj = load_safetensors(path)
+    else:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(obj, dict) and "state_dict" in obj \
+                and isinstance(obj["state_dict"], dict):
+            obj = obj["state_dict"]
+    out = {}
+    for k, v in obj.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach()
+            if v.is_floating_point():
+                v = v.to(torch.float32)
+            out[k] = v.numpy()
+        else:
+            out[k] = v
+    return out
+
+
+def cmd_convert_checkpoint(args) -> int:
+    """Offline converter: published torch/safetensors checkpoints -> the
+    one-file checkpoint the node factory loads (`ModelConfig.checkpoint`,
+    utils/checkpoint.py). The template tree comes from the port's module
+    bundle built on the meta device (`bridge.template_from_models`), so
+    no parameter is ever allocated for it; conversion is host-side numpy,
+    and the converted tree goes through `params_from_jax` into the port's
+    state_dict (float32)."""
+    import torch
+
+    from arbius_tpu_torch.models.sd15.bridge import (
+        params_from_jax,
+        template_from_models,
+    )
+    from arbius_tpu_torch.utils.checkpoint import save_params
+
+    meta = torch.device("meta")
+    fam = args.family
+
+    def need(flag: str) -> dict:
+        v = getattr(args, flag)
+        if not v:
+            raise SystemExit(f"--{flag} is required for family {fam}")
+        return _load_torch_state_dict(v)
+
+    if fam == "anythingv3":
+        from arbius_tpu_torch.models.sd15.convert import (
+            convert_sd15_text,
+            convert_sd15_unet,
+            convert_sd15_vae,
+        )
+        from arbius_tpu_torch.models.sd15.pipeline import (
+            SD15Config,
+            SD15Models,
+        )
+
+        cfg = SD15Config()
+        tmpl = template_from_models(SD15Models(cfg, meta))
+        params = {
+            "unet": convert_sd15_unet(need("unet"), tmpl["unet"]),
+            "vae": convert_sd15_vae(need("vae"), tmpl["vae"]),
+            "text": convert_sd15_text(need("text"), tmpl["text"],
+                                      cfg.text.heads,
+                                      cfg.text.width // cfg.text.heads),
+        }
+    elif fam in ("zeroscopev2xl", "damo"):
+        from arbius_tpu_torch.models.video import (
+            Text2VideoConfig,
+            Text2VideoModels,
+            convert_unet3d,
+        )
+        from arbius_tpu_torch.models.video.convert import (
+            convert_video_text,
+            convert_video_vae,
+        )
+
+        cfg = Text2VideoConfig()
+        tmpl = template_from_models(Text2VideoModels(cfg, meta))
+        params = {
+            "unet": convert_unet3d(need("unet"), tmpl["unet"]),
+            "vae": convert_video_vae(need("vae"), tmpl["vae"]),
+            "text": convert_video_text(need("text"), tmpl["text"],
+                                       cfg.text.heads,
+                                       cfg.text.width // cfg.text.heads),
+        }
+    elif fam == "kandinsky2":
+        from arbius_tpu_torch.models.kandinsky2 import (
+            Kandinsky2Config,
+            convert_kandinsky2_decoder,
+            convert_kandinsky2_movq,
+            convert_kandinsky2_prior,
+            convert_kandinsky2_text_projection,
+        )
+        from arbius_tpu_torch.models.kandinsky2.pipeline import (
+            Kandinsky2Models,
+        )
+        from arbius_tpu_torch.models.sd15.convert import convert_sd15_text
+
+        cfg = Kandinsky2Config()
+        tmpl = template_from_models(Kandinsky2Models(cfg, meta))
+        prior_tree, stats = convert_kandinsky2_prior(need("prior"),
+                                                     tmpl["prior"])
+        if tuple(stats.shape) != tuple(tmpl["prior_stats"].shape):
+            raise SystemExit(
+                f"prior clip stats shape {tuple(stats.shape)} != configured "
+                f"{tuple(tmpl['prior_stats'].shape)} — wrong prior variant")
+        text_sd = need("text")
+        params = {
+            "prior": prior_tree,
+            "prior_stats": stats,
+            "decoder": convert_kandinsky2_decoder(need("decoder"),
+                                                  tmpl["decoder"]),
+            "movq": convert_kandinsky2_movq(need("movq"), tmpl["movq"]),
+            "text": convert_sd15_text(text_sd, tmpl["text"],
+                                      cfg.text.heads,
+                                      cfg.text.width // cfg.text.heads),
+            "text_proj": convert_kandinsky2_text_projection(
+                text_sd, tmpl["text_proj"]),
+        }
+    elif fam == "robust_video_matting":
+        from arbius_tpu_torch.models.rvm import (
+            MattingStep,
+            RVMPipelineConfig,
+            convert_rvm,
+        )
+
+        cfg = RVMPipelineConfig().model
+        params = convert_rvm(need("weights"),
+                             template_from_models(MattingStep(cfg, meta)),
+                             cfg)
+    else:
+        raise SystemExit(f"unknown family {fam!r}")
+
+    state = params_from_jax(params)
+    save_params(args.out, state)
+    n = sum(v.numel() for v in state.values())
+    print(json.dumps({"family": fam, "out": args.out,
+                      "param_count": int(n)}))
+    return 0
+
+
 def build_info(device) -> dict:
     """The build a golden vector is valid for: the platform, torch, CUDA
     and cuDNN versions and, on a card, its name and power limit."""
@@ -149,7 +382,10 @@ def cmd_record_golden(args) -> int:
         raw.update(probe_raw)
     mid = "0x" + "00" * 32
     mc = ModelConfig(id=mid, template=args.template, tiny=args.tiny,
-                     weights_dtype=args.weights_dtype)
+                     checkpoint=args.checkpoint,
+                     weights_dtype=args.weights_dtype,
+                     tokenizer="clip_bpe" if args.vocab else "byte",
+                     vocab_path=args.vocab, merges_path=args.merges)
     model = build_registry(MiningConfig(models=(mc,)), device=args.device,
                            resolve_file=resolve_file).get(mid)
     rec = record_golden(model, raw, args.seed,
@@ -716,6 +952,38 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    sub.add_parser("templates").set_defaults(fn=cmd_templates)
+    sp = sub.add_parser("template")
+    sp.add_argument("name")
+    sp.set_defaults(fn=cmd_template)
+    sp = sub.add_parser("validate-config")
+    sp.add_argument("path")
+    sp.set_defaults(fn=cmd_validate_config)
+    sp = sub.add_parser("cid")
+    sp.add_argument("path")
+    sp.set_defaults(fn=cmd_cid)
+    sp = sub.add_parser("commitment")
+    sp.add_argument("address")
+    sp.add_argument("taskid")
+    sp.add_argument("cid")
+    sp.set_defaults(fn=cmd_commitment)
+    sp = sub.add_parser("emission")
+    sp.add_argument("--t", type=int, default=31536000)
+    sp.add_argument("--supply", default="100000")
+    sp.set_defaults(fn=cmd_emission)
+    sp = sub.add_parser(
+        "convert-checkpoint",
+        help="published torch/safetensors weights -> the port's one-file "
+             "checkpoint")
+    sp.add_argument("--family", required=True,
+                    choices=["anythingv3", "kandinsky2", "zeroscopev2xl",
+                             "damo", "robust_video_matting"])
+    sp.add_argument("--out", required=True, help="checkpoint file to write")
+    for comp in ("unet", "vae", "text", "prior", "decoder", "movq",
+                 "weights"):
+        sp.add_argument(f"--{comp}", help=f"{comp} checkpoint file")
+    sp.set_defaults(fn=cmd_convert_checkpoint)
+
     sp = sub.add_parser("demo-mine")
     sp.add_argument("--prompt", default="arbius test cat")
     sp.add_argument("--device", default="cuda",
@@ -742,6 +1010,8 @@ def main(argv=None) -> int:
                          "pin the deterministic probe clip of this shape "
                          "as input_video")
     sp.add_argument("--tiny", action="store_true")
+    sp.add_argument("--checkpoint", help="convert-checkpoint's file "
+                                         "(default: random init)")
     sp.add_argument("--weights-dtype", dest="weights_dtype",
                     default="float32", choices=["float32", "bfloat16"],
                     help="goldens are dtype-specific: record with the "
@@ -749,6 +1019,8 @@ def main(argv=None) -> int:
     sp.add_argument("--canonical-batch", dest="canonical_batch", type=int,
                     default=4, help="the node's canonical_batch: a golden "
                                     "holds for that batch size only")
+    sp.add_argument("--vocab", help="CLIP BPE vocab.json (selects clip_bpe)")
+    sp.add_argument("--merges", help="CLIP BPE merges.txt")
     sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     sp.set_defaults(fn=cmd_record_golden)
 

@@ -1,6 +1,12 @@
 """Kandinsky-2 model family (the kandinsky2 template class), in PyTorch:
-diffusion prior + decoder UNet + MOVQ. Checkpoint conversion waits for a
-checkpoint in the repository (ROADMAP queue 1 item 7)."""
+diffusion prior + decoder UNet + MOVQ, and the checkpoint converters
+(convert.py)."""
+from arbius_tpu_torch.models.kandinsky2.convert import (
+    convert_kandinsky2_decoder,
+    convert_kandinsky2_movq,
+    convert_kandinsky2_prior,
+    convert_kandinsky2_text_projection,
+)
 from arbius_tpu_torch.models.kandinsky2.decoder import (
     DecoderConfig,
     DecoderUNet,
@@ -20,5 +26,7 @@ from arbius_tpu_torch.models.sd15.bridge import params_from_jax
 __all__ = [
     "DecoderConfig", "DecoderUNet", "Kandinsky2Config", "Kandinsky2Pipeline",
     "MOVQConfig", "MOVQDecoder", "PriorConfig", "PriorTransformer",
+    "convert_kandinsky2_decoder", "convert_kandinsky2_movq",
+    "convert_kandinsky2_prior", "convert_kandinsky2_text_projection",
     "params_from_jax", "prior_sample",
 ]

@@ -1,8 +1,8 @@
 """Robust Video Matting family: the published RVM recurrent matting
 network (templates/data/robust_video_matting.json), in PyTorch,
-single-device and bf16 only. The twin of the reference's checkpoint
-converter (models/rvm/convert.py) waits for a checkpoint in the
-repository (ROADMAP.md queue 1 item 3)."""
+single-device and bf16 only, and its checkpoint converter
+(convert.py)."""
+from arbius_tpu_torch.models.rvm.convert import convert_rvm, rvm_key_for
 from arbius_tpu_torch.models.rvm.model import (
     MOBILENETV3_LARGE_ROWS,
     ConvGRU,
@@ -16,4 +16,5 @@ from arbius_tpu_torch.models.rvm.pipeline import (
 )
 
 __all__ = ["ConvGRU", "MOBILENETV3_LARGE_ROWS", "MattingStep",
-           "OUTPUT_TYPES", "RVMConfig", "RVMPipeline", "RVMPipelineConfig"]
+           "OUTPUT_TYPES", "RVMConfig", "RVMPipeline", "RVMPipelineConfig",
+           "convert_rvm", "rvm_key_for"]

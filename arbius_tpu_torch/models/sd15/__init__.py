@@ -5,16 +5,21 @@ from arbius_tpu_torch.models.sd15.text_encoder import (
     TextEncoder,
     TextEncoderConfig,
 )
-from arbius_tpu_torch.models.sd15.tokenizer import ByteTokenizer
+from arbius_tpu_torch.models.sd15.tokenizer import (
+    ByteTokenizer,
+    CLIPBPETokenizer,
+)
 from arbius_tpu_torch.models.sd15.unet import UNet2DCondition, UNetConfig
 from arbius_tpu_torch.models.sd15.vae import (
     VAEConfig,
     VAEDecoder,
+    VAEEncoder,
     decode_to_images,
 )
 
 __all__ = [
     "ByteTokenizer",
+    "CLIPBPETokenizer",
     "SD15Config",
     "SD15Pipeline",
     "TextEncoder",
@@ -23,6 +28,7 @@ __all__ = [
     "UNetConfig",
     "VAEConfig",
     "VAEDecoder",
+    "VAEEncoder",
     "decode_to_images",
     "params_from_jax",
 ]

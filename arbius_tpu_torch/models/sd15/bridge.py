@@ -19,6 +19,13 @@ flax path joined with '.', and only the leaves change:
   - any other parameter (`pos_embed`, BNInf's `mean` and `var`, the prior's rank-3 `pos_embed` and
     `prd_embed`, the top-level `prior_stats`) keeps its name and shape.
 
+`template_from_models` reads `_convert` backwards on shapes: the
+reference's parameter tree for a module bundle, as nested dicts of meta
+tensors, the template the checkpoint converters (`models/*/convert.py`)
+fill in; what they return goes through `params_from_jax` unchanged.
+`tree_from_state` reads it backwards on values: a state_dict as the
+reference's tree.
+
 `quant_layout` names the leaves the reference quantizes in int8 and fp8
 mode (`_eligible`: floating with ndim >= 2 in the flax tree) and, for
 each, where `_convert` put its output axis (`quant.core.QuantAxis`):
@@ -96,6 +103,73 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
     walk(tree, ())
     return out
+
+
+def _flax_layout(models: nn.Module):
+    """Per parameter of `models`: its port key, the flax path of its
+    leaf, the leaf's shape and the function taking the port's array
+    (numpy) to flax's layout; `_convert` read backwards, the DenseGeneral
+    heads from the modules."""
+    heads = {name: mod.heads for name, mod in models.named_modules()
+             if isinstance(mod, SelfAttention)}
+    for name, mod in models.named_modules():
+        parent, _, child = name.rpartition(".")
+        h = heads.get(parent)
+        prefix = tuple(name.split(".")) if name else ()
+        for pname, p in mod.named_parameters(recurse=False):
+            shape, leaf, fn = tuple(p.shape), pname, None
+            if isinstance(mod, nn.Linear) and pname == "weight":
+                out_f, in_f = shape
+                leaf = "kernel"
+                if h and child == "out":
+                    shape = (h, in_f // h, out_f)
+                elif h:                                   # query/key/value
+                    shape = (in_f, h, out_f // h)
+                else:
+                    shape = (in_f, out_f)
+                fn = (lambda w, s=shape: w.T.reshape(s))
+            elif isinstance(mod, nn.Linear) and h and child != "out":
+                shape = (h, shape[0] // h)                # q/k/v bias
+                fn = (lambda b, s=shape: b.reshape(s))
+            elif isinstance(mod, nn.Conv3d) and pname == "weight":
+                leaf, shape = "kernel", (shape[2], shape[1], shape[0])
+                fn = (lambda w: w[:, :, :, 0, 0].transpose(2, 1, 0))
+            elif isinstance(mod, nn.Conv2d) and pname == "weight":
+                leaf = "kernel"
+                shape = (shape[2], shape[3], shape[1], shape[0])
+                fn = (lambda w: w.transpose(2, 3, 1, 0))
+            elif isinstance(mod, nn.Embedding):
+                leaf = "embedding"
+            elif pname == "weight":                       # the norms
+                leaf = "scale"
+            yield (prefix + (pname,), prefix + (leaf,), shape,
+                   fn or (lambda w: w))
+
+
+def _nest(items) -> dict:
+    tree: dict = {}
+    for path, leaf in items:
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def template_from_models(models: nn.Module) -> dict:
+    """The reference's parameter tree for `models` in shapes only: nested
+    dicts of meta tensors under the flax names, each in flax's layout."""
+    return _nest((path, torch.empty(shape, device="meta"))
+                 for _, path, shape, _ in _flax_layout(models))
+
+
+def tree_from_state(models: nn.Module,
+                    state: dict[str, torch.Tensor]) -> dict:
+    """`params_from_jax` inverted: the port's state_dict for `models` as
+    the reference's parameter tree of float32 numpy arrays."""
+    return _nest((path, np.ascontiguousarray(fn(
+        state[".".join(key)].detach().float().cpu().numpy())))
+                 for key, path, _, fn in _flax_layout(models))
 
 
 def quant_layout(models: nn.Module) -> dict[str, QuantAxis]:

@@ -1,9 +1,9 @@
-"""AutoencoderKL decoder (the SD VAE) — latents -> pixels.
+"""AutoencoderKL (the SD VAE) — latent <-> pixel codec.
 
-Twin of the decoder half of arbius_tpu/models/sd15/vae.py; txt2img needs
-only the decoder (the encoder waits for a later slice). Latent scaling
-factor 0.18215 (SD-1.5 convention). The public call takes NHWC latents
-and returns NHWC pixels; inside, activations run NCHW.
+Twin of arbius_tpu/models/sd15/vae.py. txt2img needs only the decoder;
+the encoder is its twin for completeness (no caller in either package
+uses it). Latent scaling factor 0.18215 (SD-1.5 convention). The public
+calls take and return NHWC; inside, activations run NCHW.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from torch import nn
 
 from arbius_tpu_torch.models.common import (
     Attention,
+    Downsample,
     GroupNorm32,
     ResnetBlock,
     Upsample,
@@ -99,6 +100,48 @@ class VAEDecoder(nn.Module):
                 h = getattr(self, f"up_{level}_res_{j}")(h)
             if level > 0:
                 h = getattr(self, f"up_{level}_us")(h)
+        h = F.silu(self.norm_out(h))
+        return self.conv_out(h.float()).permute(0, 2, 3, 1)
+
+
+class VAEEncoder(nn.Module):
+    """forward(x[B,H,W,3] NHWC) -> moments [B,H/8,W/8,2*latent] float32
+    NHWC (mean, then logvar)."""
+
+    def __init__(self, config: VAEConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        dt = cfg.tdtype
+        bc = cfg.block_channels
+        self.conv_in = conv3x3(3, bc[0], dt, device)
+        cur = bc[0]
+        for level, ch in enumerate(bc):
+            for j in range(cfg.layers_per_block):
+                self.add_module(f"down_{level}_res_{j}",
+                                ResnetBlock(cur, ch, dt, norm_eps=1e-6,
+                                            device=device))
+                cur = ch
+            if level < len(bc) - 1:
+                self.add_module(f"down_{level}_ds", Downsample(ch, dt, device))
+        self.mid_res_0 = ResnetBlock(cur, bc[-1], dt, norm_eps=1e-6,
+                                     device=device)
+        self.mid_attn = _MidAttention(bc[-1], dt, device)
+        self.mid_res_1 = ResnetBlock(bc[-1], bc[-1], dt, norm_eps=1e-6,
+                                     device=device)
+        self.norm_out = GroupNorm32(bc[-1], 1e-6, device=device)
+        # mean + logvar, in fp32
+        self.conv_out = conv3x3(bc[-1], cfg.latent_channels * 2,
+                                torch.float32, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        h = self.conv_in(x.to(cfg.tdtype).permute(0, 3, 1, 2))
+        for level in range(len(cfg.block_channels)):
+            for j in range(cfg.layers_per_block):
+                h = getattr(self, f"down_{level}_res_{j}")(h)
+            if level < len(cfg.block_channels) - 1:
+                h = getattr(self, f"down_{level}_ds")(h)
+        h = self.mid_res_1(self.mid_attn(self.mid_res_0(h)))
         h = F.silu(self.norm_out(h))
         return self.conv_out(h.float()).permute(0, 2, 3, 1)
 

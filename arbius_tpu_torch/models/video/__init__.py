@@ -1,9 +1,12 @@
 """Text-to-video model family (the zeroscopev2xl and damo template class),
-in PyTorch: the UNet3DConditionModel topology, single-device. Checkpoint
-conversion (the reference's video/convert.py) waits for a checkpoint in
-the repository, and frame-axis sequence parallelism for ROADMAP queue 1
-item 11."""
+in PyTorch: the UNet3DConditionModel topology, single-device, and its
+checkpoint converter (convert.py). Frame-axis sequence parallelism waits
+for ROADMAP queue 1 item 11."""
 from arbius_tpu_torch.models.sd15.bridge import params_from_jax
+from arbius_tpu_torch.models.video.convert import (
+    convert_unet3d,
+    unet3d_key_for,
+)
 from arbius_tpu_torch.models.video.pipeline import (
     Text2VideoConfig,
     Text2VideoModels,
@@ -23,5 +26,6 @@ __all__ = [
     "TemporalConvLayer", "TemporalSelfAttention", "TemporalTransformer",
     "TemporalTransformerBlock", "Text2VideoConfig", "Text2VideoModels",
     "Text2VideoPipeline", "UNet3DCondition", "UNet3DConfig",
-    "params_from_jax", "vae_frames_per_call",
+    "convert_unet3d", "params_from_jax", "unet3d_key_for",
+    "vae_frames_per_call",
 ]

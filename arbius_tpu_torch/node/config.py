@@ -73,7 +73,8 @@ class ModelConfig:
     enabled: bool = True
     min_fee: int = 0              # wad; checkModelFilter mirror
     allowed_owners: tuple[str, ...] = ()
-    checkpoint: str | None = None  # orbax param dir (None: random init)
+    # convert-checkpoint's file (None: random init)
+    checkpoint: str | None = None
     tiny: bool = False             # reduced topology (dev/CI hosts)
     # prompt tokenizer: "byte" (deterministic default) or "clip_bpe"
     # (vocab/merges files required — pairs with converted CLIP weights)

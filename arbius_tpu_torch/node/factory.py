@@ -1,18 +1,23 @@
 """Registry factory — MiningConfig → live ModelRegistry, for the port.
 
 Twin of arbius_tpu/node/factory.py for all six templates, on a torch
-device. Weights come from the caller (e.g. the bridge's `params_from_jax`)
-or from the pipeline's seeded random init (same FLOPs, no weights
-download). Each pipeline serves its template's precision mode
-(`cfg.precision.mode_for`): in int8 or fp8 it quantizes the weights once
-at load, after the `weights_dtype` cast, as the reference's factory does
-(init, cast, quantize). Checkpoints, the CLIP BPE tokenizer and meshes
-are not ported yet: a config that names one raises `ConfigError` naming
-the ROADMAP.md queue 1 item that ports it.
+device. Weights come from the model's checkpoint (`ModelConfig.checkpoint`:
+the one file `convert-checkpoint` writes, utils/checkpoint.py), from the
+caller (e.g. the bridge's `params_from_jax`) or from the pipeline's
+seeded random init (same FLOPs, no weights download). Each pipeline
+serves its template's precision mode (`cfg.precision.mode_for`): in int8
+or fp8 it quantizes the weights once at load, after the `weights_dtype`
+cast, as the reference's factory does (load or init, cast, quantize), so
+a loaded checkpoint is quantized exactly as the seeded init is. The
+prompt tokenizer is the byte tokenizer or, with `tokenizer: "clip_bpe"`,
+CLIP's BPE over the configured vocabulary files. Meshes are not ported
+yet: a config that names one raises `ConfigError` naming the ROADMAP.md
+queue 1 item that ports it.
 """
 from __future__ import annotations
 
 import logging
+import os
 
 import torch
 
@@ -21,7 +26,12 @@ from arbius_tpu_torch.models.kandinsky2 import (
     Kandinsky2Pipeline,
 )
 from arbius_tpu_torch.models.rvm import RVMPipeline, RVMPipelineConfig
-from arbius_tpu_torch.models.sd15 import ByteTokenizer, SD15Config, SD15Pipeline
+from arbius_tpu_torch.models.sd15 import (
+    ByteTokenizer,
+    CLIPBPETokenizer,
+    SD15Config,
+    SD15Pipeline,
+)
 from arbius_tpu_torch.models.textgen import TextGenConfig, TextGenPipeline
 from arbius_tpu_torch.models.video import Text2VideoConfig, Text2VideoPipeline
 from arbius_tpu_torch.node.config import (
@@ -40,6 +50,7 @@ from arbius_tpu_torch.node.solver import (
     TextGenRunner,
 )
 from arbius_tpu_torch.templates.engine import load_template
+from arbius_tpu_torch.utils.checkpoint import load_params
 
 log = logging.getLogger("arbius.factory")
 
@@ -66,31 +77,50 @@ _FAMILIES = {"anythingv3": (SD15Config, SD15Pipeline, SD15Runner),
 TEMPLATES = (*_FAMILIES, "textgen", "robust_video_matting")
 
 
-def _load(pipe, params, seed: int, weights_dtype: str):
-    """Load `params` into `pipe`, else its seeded random weights.
-    weights_dtype "bfloat16" rounds every floating parameter to bf16 once
+def _tokenizer_for(m: ModelConfig, text_cfg):
+    """ModelConfig.tokenizer -> live tokenizer (None = pipeline default).
+
+    `clip_bpe` loads the standard CLIP vocab/merges from the configured
+    local files: the pairing converted CLIP weights need (byte-level ids
+    feed garbage conditioning into a pretrained text tower)."""
+    if m.tokenizer == "clip_bpe":
+        tok = CLIPBPETokenizer.from_files(m.vocab_path, m.merges_path)
+        tok.max_length = text_cfg.max_length
+        return tok
+    return tiny_byte_tokenizer(text_cfg) if m.tiny else None
+
+
+def _load(pipe, m: ModelConfig, params, seed: int):
+    """Load the model's weights into `pipe`: its checkpoint file, else
+    `params`, else the seeded random init. weights_dtype "bfloat16"
+    rounds every floating parameter stored in another dtype to bf16 once
     (the reference casts its whole tree); linear and conv weights are
     stored in the compute dtype either way. A pipeline in int8 or fp8
     quantizes the cast weights as it loads them (`load_params`)."""
-    state = params if params is not None else pipe.init_params(seed)
-    if weights_dtype == "bfloat16":
+    if m.checkpoint:
+        state = {k: v.to(pipe.device)
+                 for k, v in load_params(m.checkpoint).items()}
+    elif params is not None:
+        state = params
+    else:
+        state = pipe.init_params(seed)
+    if m.weights_dtype == "bfloat16":
         state = {k: v.to(torch.bfloat16).to(v.dtype)
-                 if v.is_floating_point() else v for k, v in state.items()}
+                 if v.is_floating_point() and v.dtype != torch.bfloat16
+                 else v for k, v in state.items()}
     pipe.load_params(state)
     return pipe
 
 
-def _runner(template: str, *, tiny: bool, device, params, seed: int,
-            weights_dtype: str = "float32", precision: str = "bf16"):
-    """`template`'s runner over its pipeline (tiny or full config) on
-    `device` in `precision` with `params`, else seeded random weights
-    (`_load`)."""
-    config_cls, pipeline_cls, runner_cls = _FAMILIES[template]
-    cfg = config_cls.tiny() if tiny else config_cls()
-    pipe = pipeline_cls(cfg, tokenizer=tiny_byte_tokenizer(cfg.text)
-                        if tiny else None, device=device,
-                        precision=precision)
-    return runner_cls(_load(pipe, params, seed, weights_dtype))
+def _runner(m: ModelConfig, *, device, params, seed: int,
+            precision: str = "bf16"):
+    """`m.template`'s runner over its pipeline (tiny or full config) on
+    `device` in `precision`, with the weights `_load` picks."""
+    config_cls, pipeline_cls, runner_cls = _FAMILIES[m.template]
+    cfg = config_cls.tiny() if m.tiny else config_cls()
+    pipe = pipeline_cls(cfg, tokenizer=_tokenizer_for(m, cfg.text),
+                        device=device, precision=precision)
+    return runner_cls(_load(pipe, m, params, seed))
 
 
 def _textgen(m: ModelConfig, tg: TextgenConfig, *, device, params,
@@ -102,7 +132,7 @@ def _textgen(m: ModelConfig, tg: TextgenConfig, *, device, params,
                            prompt_buckets=tuple(tg.prompt_buckets),
                            decode_buckets=tuple(tg.decode_buckets),
                            top_k=tg.top_k, precision=precision)
-    return TextGenRunner(_load(pipe, params, seed, m.weights_dtype))
+    return TextGenRunner(_load(pipe, m, params, seed))
 
 
 def probe_resolver(shape: str, base=None):
@@ -143,13 +173,7 @@ def _rvm(m: ModelConfig, resolve_file, *, device, params,
         resolve_file, _ = probe_resolver(probe, base=resolve_file)
     cfg = RVMPipelineConfig.tiny() if m.tiny else RVMPipelineConfig()
     pipe = RVMPipeline(cfg, device=device)
-    return RVMRunner(_load(pipe, params, seed, m.weights_dtype),
-                     resolve_file)
-
-
-def _sd15_runner(**kw) -> SD15Runner:
-    """SD-1.5 (anythingv3); see `_runner`."""
-    return _runner("anythingv3", **kw)
+    return RVMRunner(_load(pipe, m, params, seed), resolve_file)
 
 
 def build_anythingv3(tiny: bool = False,
@@ -160,8 +184,10 @@ def build_anythingv3(tiny: bool = False,
     config), with `params` if given, else seeded random weights."""
     return RegisteredModel(id=ANYTHINGV3_MODEL_ID,
                            template=load_template("anythingv3"),
-                           runner=_sd15_runner(tiny=tiny, device=device,
-                                               params=params, seed=seed))
+                           runner=_runner(ModelConfig(
+                               id=ANYTHINGV3_MODEL_ID, template="anythingv3",
+                               tiny=tiny), device=device, params=params,
+                               seed=seed))
 
 
 def _check_ported(m: ModelConfig, mode: str, mesh: dict | None) -> None:
@@ -180,13 +206,9 @@ def _check_ported(m: ModelConfig, mode: str, mesh: dict | None) -> None:
             f"precision mode {mode!r} is not shipped for template "
             "robust_video_matting — the matting family serves bf16 only "
             "(docs/quantization.md)")
-    if m.checkpoint:
-        raise ConfigError(f"model {m.id}: checkpoints are not ported yet; "
-                          "weights come from `params` or the seeded init "
-                          "(ROADMAP queue 1 item 3)")
-    if m.tokenizer != "byte":
-        raise ConfigError(f"model {m.id}: tokenizer {m.tokenizer!r} is not "
-                          "ported yet (ROADMAP queue 1 item 3)")
+    if m.checkpoint and not os.path.isfile(m.checkpoint):
+        raise ConfigError(f"model {m.id}: checkpoint {m.checkpoint!r} is "
+                          "not a file (convert-checkpoint writes one)")
 
 
 def build_registry(cfg: MiningConfig, device: str | torch.device = "cuda",
@@ -216,18 +238,16 @@ def build_registry(cfg: MiningConfig, device: str | torch.device = "cuda",
                         "resolve_file (or a probe_video golden); "
                         "skipping", m.id)
             continue
-        if params is None:
-            log.warning("model %s: no params given, using random init",
-                        m.id)
+        if params is None and not m.checkpoint:
+            log.warning("model %s: no checkpoint or params given, using "
+                        "random init", m.id)
         kw = dict(device=device, params=params, seed=0)
         if m.template == "textgen":
             runner = _textgen(m, cfg.textgen, precision=mode, **kw)
         elif m.template == "robust_video_matting":
             runner = _rvm(m, resolve_file, **kw)
         else:
-            runner = _runner(m.template, tiny=m.tiny,
-                             weights_dtype=m.weights_dtype, precision=mode,
-                             **kw)
+            runner = _runner(m, precision=mode, **kw)
         golden = None
         if m.golden is not None:
             golden = (dict(m.golden["input"]), int(m.golden["seed"]),

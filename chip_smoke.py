@@ -107,8 +107,10 @@ its own lines with timings:
      UNet3D, the 24-layer text tower, the SD VAE): the tiny float32
      config solved on the card and on the CPU with the temporal zero
      inits filled (uint8 within one level); damo's default task (16
-     frames at 256x256, 50 steps, DDIM, guidance 9.0) for six template
-     inputs at canonical batch 4, with CIDs of the MP4 bytes,
+     frames at 256x256, DDIM, guidance 9.0) at VIDEO_MINE_STEPS (10)
+     steps, not the template's 50 (the self-test keeps the golden's
+     50), for six template inputs at canonical batch 4, with CIDs of
+     the MP4 bytes,
      commitments, finite frames none of them constant, and per chunk
      the flash launches `expected_launches` derives from
      `video_attention_shapes` (the D = 64 calls on the wgmma and short
@@ -159,7 +161,8 @@ its own lines with timings:
      program): the tiny float32 config in int8 on the card and the CPU
      (uint8 within one level); for anythingv3 in int8 and fp8 (512x512,
      20 steps, DPMSolverMultistep), kandinsky2 (768x768, 50 steps), damo
-     (16 frames at 256x256, 50 steps) and textgen in int8, a MinerNode
+     (16 frames at 256x256, the tasks at VIDEO_MINE_STEPS steps, the
+     golden at 50) and textgen in int8, a MinerNode
      on LocalChain booted with the committed
      arbius_tpu_torch/goldens/<template>.h100.<mode>.json (re-recorded
      into chiprun_out/goldens/ where the build differs) passes its
@@ -176,6 +179,21 @@ its own lines with timings:
      and mode the resident weight GiB after the build and the peak over
      a PEAK_STEPS-step chunk (int8 resident below bf16's), and the
      dequantization's leaves, kernels and device ms.
+  14. checkpoint and the CLIP BPE tokenizer, after phase 7: phase 6's
+     fresh full-width anythingv3 weights (seed 0, bf16) exported to the
+     published diffusers/CLIP layout (`published_anythingv3`) as three
+     .bin files; `python -m arbius_tpu_torch.cli convert-checkpoint
+     --family anythingv3` in its own process writes the port's
+     checkpoint, which loads back bit-equal to the export; a MinerNode
+     on LocalChain booted from it (`ModelConfig.checkpoint`, bf16
+     weights) passes its self-test against phase 7's golden and mines
+     phase 4's six tasks, each on-chain CID phase 6's direct solve's,
+     each chunk launching phase 4's counts per route; a second node with
+     `tokenizer: "clip_bpe"` over tests/fixtures/clip_vocab.json and
+     clip_merges.txt (the documented CLIP ids checked) mines one chunk
+     whose CIDs a fresh pipeline repeats. Prints the export, .bin save,
+     conversion and load seconds, the file's bytes, the boot seconds, p50
+     and sol/h of the mined chunks and the launches per route.
   13. ops and simnet, host only, in a process of its own started before
      phase 9 so that it runs beside the card's work (its output printed
      after phase 12): the port's DevnetNode served over HTTP
@@ -190,7 +208,7 @@ its own lines with timings:
 
 Each phase prints its wall seconds. Any failed check raises and the exit
 code is not 0. The last lines are the card, a `kernels` JSON line (with
-each route's launches in phases 4, 6, 7, 8, 9, 10, 11 and 12) and
+each route's launches in phases 4, 6, 7, 14, 8, 9, 10, 11 and 12) and
 `{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, where CUDA is not available.
 """
@@ -280,6 +298,10 @@ K2_GOLDEN_INPUT = {"prompt": "arbius test cat", "width": K2_SIZE,
 # path; zeroscopev2xl's template default (24 frames at 1024x576) is the
 # second bucket, solved at ZS_STEPS
 VIDEO_FRAMES, VIDEO_SIZE, VIDEO_STEPS = 16, 256, 50
+# phases 9 and 12 solve and mine their damo tasks at VIDEO_MINE_STEPS, not
+# the template's 50, to keep the script inside its time limit with phase
+# 14 (the self-tests keep the goldens' 50; every check runs as before)
+VIDEO_MINE_STEPS = 10
 ZS_FRAMES, ZS_WIDTH, ZS_HEIGHT, ZS_STEPS = 24, 1024, 576, 2
 VIDEO_GOLDEN_FILE = "arbius_tpu_torch/goldens/damo.h100.bfloat16.json"
 VIDEO_GOLDEN_INPUT = {"prompt": "arbius test cat"}
@@ -623,8 +645,8 @@ def kernel_entries(flash, buckets: dict, launches: dict) -> list[dict]:
     """The `kernels` line: per route, phase 2's summaries (`buckets`, as
     `phase_kernels` returns them; times per 512x512 batch, and per batch
     of each other bucket timed) beside `launches`, each a name mapped to
-    the route's launch counts of one run (phases 4, 6, 7, 8, 9, 10, 11
-    and 12; 10 and 11 launch none)."""
+    the route's launch counts of one run (phases 4, 6, 7, 14, 8, 9, 10,
+    11 and 12; 10 and 11 launch none)."""
     tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
     names = {"cuda_core": "flash_attention",
              "tensor_core": "flash_attention_tc",
@@ -915,6 +937,7 @@ def phase_node(torch, flash, expected, todo, main_wall) -> dict:
     # phase 7 boots from the committed golden where this is its build,
     # else from the one recorded above
     return {"launches": launches, "fresh": fresh, "sol_h": node_sol_h,
+            "direct": dict(zip(tids, onchain)),
             "golden": (committed if build == built else rec)["golden"],
             "golden_source": GOLDEN_FILE if build == built else
             "re-recorded in phase 6 (another build)"}
@@ -997,6 +1020,279 @@ def phase_node_run(torch, flash, expected, todo, fresh, golden,
                                          for k, v in sol_h.items())
           + f"; {card_info()}", flush=True)
     return launches
+
+
+# phase 14, checkpoints and the CLIP BPE tokenizer: the repository's CLIP
+# fixtures (the documented ids of "a photo of a cat", "a dog"), and the
+# prompts of the clip_bpe node's chunk, in the fixture's vocabulary
+CLIP_VOCAB = "tests/fixtures/clip_vocab.json"
+CLIP_MERGES = "tests/fixtures/clip_merges.txt"
+CLIP_IDS = {"a photo of a cat": [49406, 320, 1125, 539, 320, 2368, 49407],
+            "a dog": [49406, 320, 1929, 49407]}
+CLIP_PROMPTS = ("a photo of a cat", "a dog", "a photo of a dog", "a cat")
+
+
+def export_published(tree: dict, key_for) -> dict:
+    """The reference's tree -> the published layout, each leaf's declared
+    transform (`key_for`'s) inverted: a conv or linear transposed back,
+    and the text towers' DenseGeneral head layouts (`_make_attn_head_tf`)
+    flattened back by their shapes, as their keys name them."""
+    from arbius_tpu_torch.models.sd15.convert import (
+        _conv,
+        _ident,
+        _leaves,
+        _linear,
+    )
+
+    out = {}
+    for parts, w in _leaves(tree):
+        key, tf = key_for("/".join(parts))
+        if tf is _conv:
+            out[key] = w.transpose(3, 2, 0, 1)
+        elif tf is _linear:
+            out[key] = w.T
+        elif tf is _ident:
+            out[key] = w
+        elif w.ndim == 3 and key.endswith("out_proj.weight"):   # [H, D, W]
+            out[key] = w.reshape(-1, w.shape[-1]).T
+        elif w.ndim == 3:                                       # [W, H, D]
+            out[key] = w.reshape(w.shape[0], -1).T
+        elif w.ndim == 2:                                       # [H, D]
+            out[key] = w.reshape(-1)
+        else:
+            raise ValueError(f"no inverse for {key} {w.shape}")
+    return out
+
+
+def published_anythingv3(models, state: dict) -> dict:
+    """anythingv3's weights (`models`' state_dict `state`) as the three
+    published state dicts convert-checkpoint reads: the diffusers UNet
+    (`export_sd15_unet`), the AutoencoderKL decoder and the CLIP text
+    model, float32 numpy."""
+    from arbius_tpu_torch.models.sd15.bridge import tree_from_state
+    from arbius_tpu_torch.models.sd15.convert import (
+        export_sd15_unet,
+        text_key_for,
+        vae_key_for,
+    )
+
+    text = models.text.config
+    heads, head_dim = text.heads, text.width // text.heads
+    tree = tree_from_state(models, state)
+    return {"unet": export_sd15_unet(tree["unet"]),
+            "vae": export_published(tree["vae"], vae_key_for),
+            "text": export_published(
+                tree["text"], lambda p: text_key_for(p, heads, head_dim))}
+
+
+def phase_checkpoint(torch, flash, expected, todo, fresh, golden,
+                     golden_source: str, direct: dict) -> dict:
+    """Phase 14: anythingv3 booted from a converted checkpoint. Phase 6's
+    fresh model's weights (seed 0, bf16) exported to the published
+    diffusers/CLIP layout as three .bin files, converted by `python -m
+    arbius_tpu_torch.cli convert-checkpoint` in its own process, loaded
+    back bit-equal; a MinerNode on LocalChain booted from that file
+    (`ModelConfig.checkpoint`) passes its self-test against `golden` and
+    mines `todo`'s six tasks, each on-chain CID the fresh model's
+    (`direct`, phase 6); a second node with the CLIP BPE tokenizer over
+    the repository's fixtures mines one chunk, its CIDs the same from a
+    fresh pipeline. Every chunk launches `expected`. Returns the launches
+    of the two nodes' mining."""
+    import os
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from arbius_tpu_torch.chain import WAD, Engine, TokenLedger
+    from arbius_tpu_torch.l0 import taskid2seed
+    from arbius_tpu_torch.node import (
+        LocalChain,
+        MinerNode,
+        MiningConfig,
+        ModelConfig,
+        build_registry,
+        solve_cid_batch,
+    )
+    from arbius_tpu_torch.utils import card_info, load_params
+
+    root = pathlib.Path(__file__).resolve().parent
+    models = fresh.runner.pipeline.models
+    n_params = sum(p.numel() for p in models.parameters())
+    card = card_info()
+
+    def world():
+        # phase 6's world: the same engine ids, so the same taskids
+        miner, user = "0x" + "aa" * 20, "0x" + "01" * 20
+        tok = TokenLedger()
+        eng = Engine(tok, start_time=0)
+        tok.mint(Engine.ADDRESS, 600_000 * WAD)
+        for a in (miner, user):
+            tok.mint(a, 1000 * WAD)
+            tok.approve(a, Engine.ADDRESS, 10**30)
+        mid_b = eng.register_model(user, user, 0,
+                                   b'{"meta":{"title":"anythingv3"}}')
+        chain = LocalChain(eng, miner)
+        chain.validator_deposit(100 * WAD)
+
+        def submit(inputs):
+            return ["0x" + eng.submit_task(
+                user, 0, user, mid_b, TASK_FEE * WAD,
+                json.dumps(h, sort_keys=True).encode()).hex()
+                for h in inputs]
+
+        return eng, chain, "0x" + mid_b.hex(), submit
+
+    def mine(node, eng, tids, chunks: int) -> tuple[list[str], dict]:
+        flash.reset_launches()
+        while node.tick():
+            pass
+        launches = dict(flash.flash_attention.launches_by_route)
+        check(node.db.failed_jobs() == [],
+              f"failed jobs {node.db.failed_jobs()}")
+        check(launches == {r: n * chunks for r, n in expected.items()},
+              f"checkpoint node launches {launches}, expected {expected} "
+              f"x {chunks}")
+        cids = []
+        for tid in tids:
+            sol = eng.solutions.get(bytes.fromhex(tid[2:]))
+            check(sol is not None, f"task {tid} not solved")
+            cids.append("0x" + sol.cid.hex())
+        return cids, launches
+
+    with tempfile.TemporaryDirectory() as work:
+        # -- export to the published layout, three .bin files ---------------
+        t0 = time.perf_counter()
+        state = models.state_dict()
+        parts = published_anythingv3(models, state)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        files = {}
+        for part, sd in parts.items():
+            files[part] = os.path.join(work, f"{part}.bin")
+            torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                        for k, v in sd.items()}, files[part])
+        save_s = time.perf_counter() - t0
+        bin_bytes = sum(os.path.getsize(f) for f in files.values())
+        del parts
+
+        # -- convert-checkpoint, the user's entry point, in its own process
+        ckpt = os.path.join(work, "anythingv3.pt")
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "arbius_tpu_torch.cli",
+             "convert-checkpoint", "--family", "anythingv3", "--unet",
+             files["unet"], "--vae", files["vae"], "--text", files["text"],
+             "--out", ckpt], cwd=root, capture_output=True, text=True,
+            timeout=900)
+        convert_s = time.perf_counter() - t0
+        check(done.returncode == 0, f"convert-checkpoint exited "
+              f"{done.returncode}: {done.stderr[-4000:]}")
+        info = json.loads(done.stdout.strip().splitlines()[-1])
+        check(info == {"family": "anythingv3", "out": ckpt,
+                       "param_count": n_params},
+              f"convert-checkpoint printed {info}")
+        ckpt_bytes = os.path.getsize(ckpt)
+
+        # -- load: every tensor bit-equal to the weights exported -----------
+        t0 = time.perf_counter()
+        loaded = load_params(ckpt)
+        same = loaded.keys() == state.keys() and all(
+            torch.equal(loaded[k], state[k].float().cpu()) for k in state)
+        load_s = time.perf_counter() - t0
+        check(same, "the converted checkpoint's weights differ from the "
+              "weights exported")
+        del loaded, state
+        print(f"checkpoint: {n_params} parameters exported to the published "
+              f"layout in {export_s:.1f} s, saved as three .bin files "
+              f"({bin_bytes} bytes) in {save_s:.1f} s; convert-checkpoint "
+              f"(read, convert, save; its own process) {convert_s:.1f} s, "
+              f"file {ckpt_bytes} bytes; loaded and held bit-equal to the "
+              f"export in {load_s:.1f} s ({card})", flush=True)
+
+        # -- a node booted from the checkpoint: self-test, mine six ---------
+        eng, chain, mid, submit = world()
+        cfg = MiningConfig(canonical_batch=CANONICAL_BATCH, models=(
+            ModelConfig(id=mid, template="anythingv3",
+                        weights_dtype="bfloat16", checkpoint=ckpt,
+                        golden=golden),))
+        t0 = time.perf_counter()
+        registry = build_registry(cfg, device="cuda")
+        node = MinerNode(chain, cfg, registry)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node.boot()
+        boot_s = time.perf_counter() - t0
+        tids = submit([h for _, h, _ in todo])
+        check(set(tids) == set(direct), "phase 14's world gave other "
+              "taskids than phase 6's")
+        n_chunks = -(-len(tids) // CANONICAL_BATCH)
+        t0 = time.perf_counter()
+        onchain, launches = mine(node, eng, tids, n_chunks)
+        mine_s = time.perf_counter() - t0
+        for tid, cid in zip(tids, onchain):
+            check(cid == direct[tid], f"task {tid}: on-chain {cid} from "
+                  f"the checkpoint != the direct solve's {direct[tid]}")
+        infer = sum(node.metrics.stage_seconds["infer"])
+        print(f"checkpoint: node built from the file in {build_s:.1f} s, "
+              f"booted with the self-test passing against {golden_source} "
+              f"({golden['cid']}) in {boot_s:.2f} s; mined {len(tids)} "
+              f"tasks in {n_chunks} chunks in {mine_s:.2f} s, on-chain CIDs "
+              f"the direct solve's; infer {infer:.3f} s "
+              f"({infer / n_chunks:.3f} s a chunk, "
+              f"{CANONICAL_BATCH * n_chunks * 3600 / infer:.1f} sol/h at "
+              f"full batches); launches {launches} ({card})", flush=True)
+        node.close()
+        del node, registry
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- a node with the CLIP BPE tokenizer: one chunk, two pipelines --
+        eng, chain, mid, submit = world()
+        clip = ModelConfig(
+            id=mid, template="anythingv3", weights_dtype="bfloat16",
+            checkpoint=ckpt, tokenizer="clip_bpe",
+            vocab_path=str(root / CLIP_VOCAB),
+            merges_path=str(root / CLIP_MERGES))
+        cfg = MiningConfig(canonical_batch=CANONICAL_BATCH, models=(clip,))
+        registry = build_registry(cfg, device="cuda")
+        tokenizer = registry.get(mid).runner.pipeline.tokenizer
+        for prompt, ids in CLIP_IDS.items():
+            got = tokenizer.encode(prompt).tolist()
+            check(got[:len(ids)] == ids and set(got[len(ids):]) == {ids[-1]},
+                  f"clip_bpe ids of {prompt!r}: {got}")
+        node = MinerNode(chain, cfg, registry)
+        node.boot()
+        inputs = [{**h, "prompt": prompt}
+                  for (_, h, _), prompt in zip(todo, CLIP_PROMPTS)]
+        tids = submit(inputs)
+        onchain, clip_launches = mine(node, eng, tids, 1)
+        [clip_s] = node.metrics.stage_seconds["infer"]
+        node.close()
+        del node, registry
+        gc.collect()
+        torch.cuda.empty_cache()
+        again = build_registry(cfg, device="cuda").get(mid)
+        order = [3, 1, 2, 0]
+        solved = solve_cid_batch(
+            again, [(inputs[i], taskid2seed(tids[i])) for i in order],
+            canonical_batch=CANONICAL_BATCH)
+        for i, (cid, _) in zip(order, solved):
+            check(cid == onchain[i], f"clip_bpe task {tids[i]}: on-chain "
+                  f"{onchain[i]} != a fresh pipeline's {cid}")
+        check(not set(onchain) & set(direct.values()),
+              "a clip_bpe CID equals a byte-tokenizer CID")
+        print(f"checkpoint: clip_bpe node over {CLIP_VOCAB} and "
+              f"{CLIP_MERGES} (the documented ids of {list(CLIP_IDS)}) mined "
+              f"one chunk in {clip_s:.3f} s of infer "
+              f"({CANONICAL_BATCH * 3600 / clip_s:.1f} sol/h), CIDs "
+              f"{' '.join(onchain)} the same from a fresh pipeline; "
+              f"launches {clip_launches} ({card})", flush=True)
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches_node": launches, "launches_clip_node": clip_launches}
 
 
 NODE_RUN_KEYS = ("0x" + "11" * 32, "0x" + "22" * 32)   # miner, user
@@ -1700,9 +1996,9 @@ def phase_video_small_reference(torch) -> None:
 def phase_video(torch, flash) -> dict:
     """Phase 9: text-to-video at full width (seeded random weights, bf16).
     The small reference first; then damo's default task (16 frames at
-    256x256, 50 steps, DDIM, guidance 9.0): six template inputs at the
-    canonical batch, CIDs of the MP4 bytes, commitments, finite and
-    non-constant frames, launches per chunk per route as
+    256x256, DDIM, guidance 9.0) at VIDEO_MINE_STEPS steps: six template
+    inputs at the canonical batch, CIDs of the MP4 bytes, commitments,
+    finite and non-constant frames, launches per chunk per route as
     `expected_launches` derives them from `video_attention_shapes`; a
     fresh pipeline re-solves them in other chunks (CIDs equal, one chunk
     traced by torch.profiler); zeroscopev2xl's default bucket (24 frames
@@ -1734,19 +2030,24 @@ def phase_video(torch, flash) -> dict:
     t_phase = time.perf_counter()
     phase_video_small_reference(torch)
     template = load_template("damo")
-    want = expected_launches(torch, flash, DAMO_SHAPES)
+    want = expected_launches(torch, flash, video_attention_shapes(
+        VIDEO_SIZE, VIDEO_SIZE, VIDEO_FRAMES, VIDEO_MINE_STEPS))
+    want_golden = expected_launches(torch, flash, DAMO_SHAPES)
     vae_calls = sum(n for *_, d, n in DAMO_SHAPES if d == 512)
     check(want["tensor_core_wgmma"] + want["tensor_core_wgmma_short"]
-          == 16 * 2 * VIDEO_STEPS and want["tensor_core"] == 0
+          == 16 * 2 * VIDEO_MINE_STEPS and want["tensor_core"] == 0
           and want["cuda_core"] == 0,
           f"the rule sends the UNet3D's D = 64 calls elsewhere: {want}")
     miner, user = "0x" + "aa" * 20, "0x" + "01" * 20
-    inputs = video_inputs()
+    inputs = video_inputs(num_inference_steps=VIDEO_MINE_STEPS)
     tids = template_world(inputs, miner, user, "damo")[3]()
     items = [(hydrate_input(dict(raw), template), taskid2seed(tid))
              for raw, tid in zip(inputs, tids)]
     check(all(h["num_frames"] == VIDEO_FRAMES and
-              h["num_inference_steps"] == VIDEO_STEPS for h, _ in items),
+              h["num_inference_steps"] == VIDEO_MINE_STEPS
+              for h, _ in items) and hydrate_input(
+                  dict(VIDEO_GOLDEN_INPUT), template)["num_inference_steps"]
+          == VIDEO_STEPS,
           "damo's template defaults are not 16 frames, 50 steps")
 
     def config(template_name, mid, golden=None):
@@ -1790,7 +2091,7 @@ def phase_video(torch, flash) -> dict:
         check(len(generate_commitment(ADDRESS, tid, cid)) == 32,
               "commitment is not 32 bytes")
     print(f"video: solved {len(items)} damo tasks ({VIDEO_FRAMES} frames "
-          f"at {VIDEO_SIZE}x{VIDEO_SIZE}, {VIDEO_STEPS} steps, DDIM, "
+          f"at {VIDEO_SIZE}x{VIDEO_SIZE}, {VIDEO_MINE_STEPS} steps, DDIM, "
           f"guidance 9.0) in {n_chunks} chunks in {wall:.2f} s "
           f"({len(items) / wall * 3600:.1f} solutions/h on {card}); flash "
           f"launches {launches}; CIDs " + " ".join(cids), flush=True)
@@ -1899,9 +2200,10 @@ def phase_video(torch, flash) -> dict:
     t0 = time.perf_counter()
     node.boot()
     boot_s = time.perf_counter() - t0
-    check(flash.flash_attention.launches_by_route == want,
+    check(flash.flash_attention.launches_by_route == want_golden,
           f"video self-test launches "
-          f"{flash.flash_attention.launches_by_route}, expected {want}")
+          f"{flash.flash_attention.launches_by_route}, expected "
+          f"{want_golden}")
     print(f"video node: booted with golden {golden['cid']} ({source}); "
           f"self-test passed in {boot_s:.2f} s", flush=True)
     check(submit() == tids, "video: the second world's taskids differ")
@@ -2738,10 +3040,12 @@ def full_width_bytes(quantized) -> int:
 
 
 def precision_node(torch, flash, template: str, mode: str,
-                   inputs: list[dict], want: dict) -> dict:
+                   inputs: list[dict], want: dict,
+                   want_golden: dict | None = None) -> dict:
     """A MinerNode on LocalChain serving `template` in `mode`, booted with
     the committed golden (re-recorded where the build differs): its
-    self-test launches the flash kernels of one chunk (`want`); it mines
+    self-test launches the flash kernels of one chunk at the golden's
+    bucket (`want_golden`, else `want`); it mines
     `inputs` from TaskSubmitted through claim, each chunk launching
     `want`; the cost model's rows and `arbius_precision_models` carry the
     mode; no full-width weights outlive a chunk. Returns the model, the
@@ -2788,9 +3092,11 @@ def precision_node(torch, flash, template: str, mode: str,
     t0 = time.perf_counter()
     node.boot()
     boot_s = time.perf_counter() - t0
-    check(flash.flash_attention.launches_by_route == want,
+    want_golden = want_golden or want
+    check(flash.flash_attention.launches_by_route == want_golden,
           f"{template} {mode} self-test launches "
-          f"{flash.flash_attention.launches_by_route}, expected {want}")
+          f"{flash.flash_attention.launches_by_route}, expected "
+          f"{want_golden}")
     tids = submit()
     flash.reset_launches()
     t0 = time.perf_counter()
@@ -2873,7 +3179,8 @@ def phase_precision(torch, flash) -> dict:
     and fp8 mined through a node booted with each committed golden, then
     `precision_anythingv3`'s fresh pipelines beside bf16 (CIDs, p50 and
     sol/h); kandinsky2 (768x768, 50 steps), damo (16 frames at 256x256,
-    50 steps) and textgen in int8, each solved at its golden input by its
+    its tasks at VIDEO_MINE_STEPS steps, its golden at 50) and textgen in
+    int8, each solved at its golden input by its
     node's self-test and mining six tasks (kandinsky2 and damo four)
     through claim; each mode's golden differs from bf16's at the same
     input; for each family and mode the resident weight bytes after the
@@ -2909,8 +3216,11 @@ def phase_precision(torch, flash) -> dict:
             expected_launches(torch, flash)),
         "kandinsky2": (k2_inputs()[:CANONICAL_BATCH], expected_launches(
             torch, flash, movq_attention_shapes(K2_SIZE, K2_SIZE))),
-        "damo": (video_inputs(CANONICAL_BATCH),
-                 expected_launches(torch, flash, DAMO_SHAPES)),
+        "damo": (video_inputs(CANONICAL_BATCH,
+                              num_inference_steps=VIDEO_MINE_STEPS),
+                 expected_launches(torch, flash, video_attention_shapes(
+                     VIDEO_SIZE, VIDEO_SIZE, VIDEO_FRAMES,
+                     VIDEO_MINE_STEPS))),
         "textgen": (textgen_inputs(), dict.fromkeys(flash.SOURCES, 0))}
     root = pathlib.Path(__file__).resolve().parent
     for template in dict.fromkeys(t for t, _ in PRECISION_GOLDENS):
@@ -2922,7 +3232,10 @@ def phase_precision(torch, flash) -> dict:
         measure(template, "bf16", bf16.runner.pipeline, base, resident)
         mined = {}
         for mode in modes:
-            node = precision_node(torch, flash, template, mode, inputs, want)
+            node = precision_node(
+                torch, flash, template, mode, inputs, want,
+                expected_launches(torch, flash, DAMO_SHAPES)
+                if template == "damo" else None)
             for r, n in node["launches"].items():
                 total[r] += n
             mined[mode] = {k: node[k] for k in ("items", "onchain")}
@@ -3469,6 +3782,12 @@ def main() -> int:
         {"phase 4 direct": len(items) / wall * 3600,
          "phase 6 LocalChain": node["sol_h"]})
     wall_mark("7 node-run")
+
+    # -- 14. checkpoint and the CLIP BPE tokenizer ---------------------------
+    ckpt = phase_checkpoint(torch, flash, expected, todo, node["fresh"],
+                            node["golden"], node["golden_source"],
+                            node["direct"])
+    wall_mark("14 checkpoint and CLIP BPE")
     node_launches = node["launches"]
     del node
     gc.collect()
@@ -3507,6 +3826,8 @@ def main() -> int:
     entries = kernel_entries(flash, buckets, {
         "launches": launches, "launches_node": node_launches,
         "launches_node_run": node_run_launches,
+        "launches_checkpoint_node": ckpt["launches_node"],
+        "launches_clip_bpe_node": ckpt["launches_clip_node"],
         "launches_kandinsky2": k2["launches"],
         "launches_kandinsky2_node": k2["launches_node"],
         "launches_video": video["launches"],

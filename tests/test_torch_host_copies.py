@@ -3,7 +3,8 @@ codecs (PNG, JPEG, H.264 and MP4, and the input side: the MP4 demuxer,
 the H.264 decoder and the probe clip), templates, tokenizer, diffusion tables, and the node's host
 modules: obs, chain, config, db, store, pinners, retry, scheduler, the
 JSON-RPC chain and the staged pipeline; the alert engine, fleetscope,
-the fleet, simnet and the runtime witness) and imports nothing of
+the fleet, simnet and the runtime witness; the checkpoint converters
+and files) and imports nothing of
 arbius_tpu; these tests hold each copy's output
 byte-equal to its twin's, the files that are copied verbatim byte-equal
 on disk, and the copied modules' text equal to their twins' once
@@ -49,6 +50,8 @@ EMPTY_DIR = "QmUNLLsPACCz1vLxQVkXqqLX5R1X345qqfHbsf67hvA3Nn"
      "arbius_tpu/templates/data/robust_video_matting.json"),
     ("arbius_tpu_torch/schedulers/diffusion.py",
      "arbius_tpu/schedulers/diffusion.py"),
+    ("arbius_tpu_torch/models/sd15/tokenizer.py",
+     "arbius_tpu/models/sd15/tokenizer.py"),
 ])
 def test_verbatim_copies(copy, original):
     assert (REPO / copy).read_bytes() == (REPO / original).read_bytes()
@@ -79,11 +82,13 @@ CHANGED_TWINS = {
     "node/node.py": "refuses unported settings at boot; no mesh, AOT "
                     "cache or perfscope; self-test at the canonical "
                     "batch; torch.profiler",
-    "cli.py": "the node and ops verbs; no offline template, CID, "
-              "emission or checkpoint verbs; node-run on --device, paced "
-              "ticks, SIGTERM and an exit summary",
+    "cli.py": "demo-mine and record-golden on --device (the golden "
+              "with its build); convert-checkpoint writes the port's "
+              "one-file checkpoint from a meta-device template and reads "
+              ".safetensors with its own reader; node-run on --device, "
+              "paced ticks, SIGTERM and an exit summary",
     "node/config.py": "own copy of validate_axes; no compile cache by "
-                      "default",
+                      "default; a checkpoint is one file",
     "sim/harness.py": "refuses a mesh, a precision other than bf16 and "
                       "perfscope (no probe runner)",
     "sim/fleet.py": "refuses aot_dir (no AOT cache or probe runner)",
@@ -97,8 +102,23 @@ CHANGED_TWINS = {
                                  "stays the reference's",
     "node/solver.py": "runners hold their pipelines' weights; results "
                       "come back through pinned memory and CUDA events",
-    "node/factory.py": "on a torch device; no mesh, checkpoint or CLIP "
-                       "BPE; the pipeline quantizes as it loads",
+    "node/factory.py": "on a torch device; no mesh; a checkpoint is the "
+                       "port's one file, loaded to the device and cast "
+                       "there; the pipeline quantizes as it loads",
+    "models/sd15/convert.py": "plain walks over nested dicts (`_leaves`) "
+                              "for jax.tree_util's; the key functions and "
+                              "leaf transforms as they are",
+    "models/video/convert.py": "export_tree walks `_leaves`, not "
+                               "jax.tree_util",
+    "models/kandinsky2/convert.py": "export_tree walks `_leaves`, not "
+                                    "jax.tree_util",
+    "models/rvm/convert.py": "export_tree walks `_leaves`, not "
+                             "jax.tree_util; RVMConfig is the port's",
+    "utils/checkpoint.py": "orbax is JAX: one torch.save file of the "
+                           "state_dict, loaded memory-mapped; its own "
+                           ".safetensors reader; no compile cache",
+    "models/sd15/vae.py": "the flax modules rewritten in torch, NCHW "
+                          "inside",
     "node/sched.py": "module docstring only: no project history",
     "obs/fleetscope.py": "module docstring only: no project history",
 }

@@ -1,6 +1,6 @@
 """The port stands alone: arbius_tpu_torch, chip_smoke.py and the port's
-tools import neither JAX nor anything of arbius_tpu, and the port's entry
-points do not quietly run on the CPU."""
+tools import neither JAX nor anything of arbius_tpu (nor safetensors),
+and the port's entry points do not quietly run on the CPU."""
 from __future__ import annotations
 
 import ast
@@ -12,7 +12,9 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "arbius_tpu")
+# safetensors too: the card's machine has no such package, so the port
+# reads the format itself (utils/checkpoint.py)
+FORBIDDEN = ("jax", "jaxlib", "flax", "arbius_tpu", "safetensors")
 SOURCES = sorted((REPO / "arbius_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "flash_mutants.py",
     REPO / "tools" / "flash_ablate.py", REPO / "tools" / "flash_same_bits.py",
@@ -54,7 +56,7 @@ def test_every_module_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 106
+    assert int(out.stdout.strip()) >= 111
 
 
 def test_entry_points_default_to_cuda():

@@ -957,30 +957,39 @@ def test_kandinsky2_boots_with_recorded_golden_and_mines(one_torch_thread):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"model": {"checkpoint": "/ckpts/kandinsky2"}}, 3),
+    ({"model": {"checkpoint": "/ckpts/kandinsky2"}}, "missing file"),
     ({"model": {"tokenizer": "clip_bpe", "vocab_path": "vocab.json",
-                "merges_path": "merges.txt"}}, 3),
+                "merges_path": "merges.txt"}}, "missing file"),
+    ({"model": {"tokenizer": "clip_bpe", "merges_path": "merges.txt"}},
+     "no vocab_path"),
     ({"precision": {"default": "int8"}}, None),
     ({"precision": {"templates": {"kandinsky2": "fp8"}}}, None),
 ], ids=lambda v: json.dumps(v) if isinstance(v, dict) else str(v))
 def test_registry_refuses_kandinsky2_unported_settings(overrides, item):
-    """Checkpoints and the CLIP BPE tokenizer wait for item 3; int8 and
-    fp8 (item None) build, with the weights held quantized."""
+    """Checkpoints and the CLIP BPE tokenizer are ported: a config naming
+    a checkpoint or a vocabulary file that is not there fails loudly at
+    boot, and a clip_bpe model with no vocab_path at load; int8 and fp8
+    (item None) build, with the weights held quantized."""
     P = _pkg("arbius_tpu_torch")
     model = {"id": "0x" + "00" * 32, "template": "kandinsky2", "tiny": True,
              **overrides.get("model", {})}
-    cfg = P.node.load_config({"compile_cache_dir": None, "models": [model],
-                              **{k: v for k, v in overrides.items()
-                                 if k != "model"}})
-    if item is None:
-        pipe = P.node.build_registry(cfg, device="cpu").get(
-            model["id"]).runner.pipeline
-        mode = cfg.precision.mode_for("kandinsky2")
-        assert pipe.precision == mode and pipe.quantized.leaves
-        assert pipe.bucket_tag(4, 768, 768, 50, "DDIM").endswith(f".{mode}")
+    raw = {"compile_cache_dir": None, "models": [model],
+           **{k: v for k, v in overrides.items() if k != "model"}}
+    if item == "no vocab_path":
+        with pytest.raises(P.node.ConfigError, match="vocab_path"):
+            P.node.load_config(raw)
         return
-    with pytest.raises(P.node.ConfigError, match=f"item {item}\\)"):
-        P.node.build_registry(cfg, device="cpu")
+    cfg = P.node.load_config(raw)
+    if item == "missing file":
+        with pytest.raises((P.node.ConfigError, FileNotFoundError),
+                           match="not a file|vocab.json"):
+            P.node.build_registry(cfg, device="cpu")
+        return
+    pipe = P.node.build_registry(cfg, device="cpu").get(
+        model["id"]).runner.pipeline
+    mode = cfg.precision.mode_for("kandinsky2")
+    assert pipe.precision == mode and pipe.quantized.leaves
+    assert pipe.bucket_tag(4, 768, 768, 50, "DDIM").endswith(f".{mode}")
 
 
 @pytest.mark.parametrize("template,mesh,item", [

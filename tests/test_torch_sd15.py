@@ -284,16 +284,17 @@ def test_generate_bf16_looser(monkeypatch, jax_tree):
 def test_factory_bf16_weights_match_cast_floating(monkeypatch, jax_tree):
     """`weights_dtype: "bfloat16"`, the path the node mines and the
     golden was recorded on: the factory's runner (node/factory.py
-    `_sd15_runner`) holds exactly the reference's `cast_floating` tree,
+    `_runner`) holds exactly the reference's `cast_floating` tree,
     and the two generate the same float pixels from it at float32
     compute, within the float32 generate's tolerance of 1e-4 (measured
     6.3e-6 on this config)."""
     from arbius_tpu.utils import cast_floating
-    from arbius_tpu_torch.node.factory import _sd15_runner
+    from arbius_tpu_torch.node.config import ModelConfig
+    from arbius_tpu_torch.node.factory import _runner
 
-    runner = _sd15_runner(tiny=True, device="cpu",
-                          params=params_from_jax(jax_tree), seed=0,
-                          weights_dtype="bfloat16")
+    runner = _runner(ModelConfig(id="0x" + "00" * 32, template="anythingv3",
+                                 tiny=True, weights_dtype="bfloat16"),
+                     device="cpu", params=params_from_jax(jax_tree), seed=0)
     state = {k: v.float() for k, v in
              runner.pipeline.models.state_dict().items()}
     cast = jax.tree_util.tree_map(
