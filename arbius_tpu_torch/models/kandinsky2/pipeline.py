@@ -252,3 +252,9 @@ class Kandinsky2Pipeline:
         if as_device:
             return images
         return images.cpu().numpy()
+
+
+# mesh layouts this family ships, the reference's data (dp and dp·tp);
+# on the port the factory refuses both until they are ported (ROADMAP
+# queue 1 item 11)
+MESH_LAYOUTS: tuple[tuple[str, ...], ...] = (("dp",), ("dp", "tp"))

@@ -16,6 +16,16 @@ The reference's `lax.scan` over steps is a Python loop here: each step
 enqueues its kernels on the current CUDA stream without waiting, so
 `generate(..., as_device=True)` returns the device tensor before the
 card has finished it.
+
+On a dp mesh of lanes (parallel/mesh.py; `mesh=`) the pipeline holds the
+networks once per device its lanes sit on (lanes sharing a card share
+them) and `generate(..., lane=l)` runs the whole batch on lane l's. A
+batch is never split over dp: at a smaller batch cuBLAS and cuDNN may
+pick other kernels, so a lane's bytes would differ from mesh-off's. The
+runner gives each lane whole canonical batches (node/solver.py), so each
+lane runs the single-device program. `mesh=None` is the single-device
+program the goldens pin. `MESH_LAYOUTS` is the reference's; dp·tp waits
+for the port's tp rules (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -74,7 +84,7 @@ class SD15Pipeline:
 
     def __init__(self, config: SD15Config | None = None, tokenizer=None,
                  device: str | torch.device = "cuda",
-                 precision: str = "bf16"):
+                 precision: str = "bf16", mesh=None):
         self.config = config or SD15Config()
         # precision mode (docs/quantization.md): int8 and fp8 hold the
         # eligible weights quantized and each bucket program begins by
@@ -85,11 +95,38 @@ class SD15Pipeline:
             raise ValueError(
                 f"text encoder width ({self.config.text.width}) must equal "
                 f"unet context_dim ({self.config.unet.context_dim})")
+        self.mesh = mesh
+        self.dp = 1
+        if mesh is not None:
+            unported = [a for a in ("pp", "sp", "tp") if mesh.shape[a] > 1]
+            if unported:
+                raise ValueError(
+                    f"mesh axes {unported}: SD-1.5 runs dp only on the "
+                    "port; its tp rules wait for multi-device (ROADMAP "
+                    "queue 1 item 11)")
+            self.dp = mesh.shape["dp"]
+            device = mesh.devices[0]
         self.device = setup_device(device)
         self.tokenizer = tokenizer or ByteTokenizer(
             max_length=self.config.text.max_length)
         self.models = SD15Models(self.config, self.device).eval()
         self.models.requires_grad_(False)
+        # the pipeline that runs each device's lanes: this one for its
+        # own device, one single-device pipeline for each other
+        self._by_device = {self.device: self}
+        for dev in (mesh.devices if mesh is not None else ()):
+            if dev not in self._by_device:
+                self._by_device[dev] = SD15Pipeline(
+                    self.config, self.tokenizer, device=dev,
+                    precision=precision)
+
+    def lane_pipeline(self, lane: int) -> "SD15Pipeline":
+        """The single-device pipeline that runs lane `lane`'s batches."""
+        if not 0 <= lane < self.dp:
+            raise ValueError(f"lane {lane} outside dp={self.dp}")
+        if self.mesh is None:
+            return self
+        return self._by_device[self.mesh.devices[lane]]
 
     # -- params ----------------------------------------------------------
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
@@ -101,9 +138,32 @@ class SD15Pipeline:
         """Copy a state_dict in (every key required); linear and conv
         weights round to their compute dtype here, once. In int8 or fp8
         the eligible leaves are quantized here instead
-        (bridge.load_weights)."""
-        self.quantized = load_weights(self.models, state_dict,
-                                      self.precision)
+        (bridge.load_weights). On a mesh every lane's device gets the
+        weights as `place_params` places them."""
+        if self.mesh is None:
+            self.quantized = load_weights(self.models, state_dict,
+                                          self.precision)
+            return
+        from arbius_tpu_torch.parallel.sharding import lane_tree
+
+        placed = self.place_params(state_dict)
+        for lane, dev in enumerate(self.mesh.devices):
+            pipe = self._by_device[dev]
+            if self.mesh.devices.index(dev) == lane:   # first lane there
+                pipe.quantized = load_weights(pipe.models,
+                                              lane_tree(placed, lane),
+                                              self.precision)
+
+    def place_params(self, state_dict: dict[str, torch.Tensor]) -> dict:
+        """The state_dict placed on the mesh's lanes
+        (`parallel.shard_params`, replicated: the tp rules wait for the
+        dp·tp layout): each key a `Sharded`. A lane on the tensor's own
+        device shares its storage."""
+        if self.mesh is None:
+            return state_dict
+        from arbius_tpu_torch.parallel.sharding import shard_params
+
+        return shard_params(state_dict, self.mesh)
 
     def bucket_tag(self, batch: int, height: int, width: int, steps: int,
                    scheduler: str) -> str:
@@ -155,13 +215,24 @@ class SD15Pipeline:
         guidance_scale: float | list[float] = 7.5,
         scheduler: str = "DDIM",
         as_device: bool = False,
+        lane: int = 0,
     ) -> np.ndarray | torch.Tensor:
         """Run a shape bucket; returns uint8 images [B, H, W, 3].
 
         `as_device=True` returns the device tensor without waiting for the
         card, so the caller can queue the next bucket and encode this one
         while it runs (the solver's one-deep overlap). Same bits either
-        way."""
+        way. On a mesh the whole batch runs on lane `lane`."""
+        pipe = self.lane_pipeline(lane)
+        if pipe is not self:
+            from arbius_tpu_torch.parallel.mesh import on_device
+
+            with on_device(pipe.device):
+                return pipe.generate(
+                    prompts, negative_prompts, seeds, width=width,
+                    height=height, num_inference_steps=num_inference_steps,
+                    guidance_scale=guidance_scale, scheduler=scheduler,
+                    as_device=as_device)
         batch = len(prompts)
         if len(negative_prompts) != batch or len(seeds) != batch:
             raise ValueError("prompts/negative_prompts/seeds must align")
@@ -198,3 +269,11 @@ class SD15Pipeline:
         if as_device:
             return images
         return images.cpu().numpy()
+
+
+# mesh layouts this family ships, the reference's data: dp scales tasks
+# (on the port each lane runs whole canonical batches); dp·tp waits for
+# the port's tp rules (ROADMAP queue 1 item 11). The batch axis is not
+# hard-partitioned.
+MESH_LAYOUTS: tuple[tuple[str, ...], ...] = (("dp",), ("dp", "tp"))
+MESH_BATCH_HARD = False

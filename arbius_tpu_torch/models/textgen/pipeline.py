@@ -260,3 +260,8 @@ class TextGenPipeline:
         if as_device:
             return tokens
         return tokens.cpu().numpy()
+
+
+# mesh layouts this family ships, the reference's data (dp); on the port
+# the factory refuses it until it is ported (ROADMAP queue 1 item 11)
+MESH_LAYOUTS: tuple[tuple[str, ...], ...] = (("dp",),)

@@ -1,7 +1,8 @@
 """Text-to-video model family (the zeroscopev2xl and damo template class),
 in PyTorch: the UNet3DConditionModel topology, single-device, and its
-checkpoint converter (convert.py). Frame-axis sequence parallelism waits
-for ROADMAP queue 1 item 11."""
+checkpoint converter (convert.py). Its dp·sp·tp layout (frames over the
+sp lanes with halo_exchange and ring or Ulysses attention, which
+parallel/ and ops/ hold) waits for ROADMAP queue 1 item 11."""
 from arbius_tpu_torch.models.sd15.bridge import params_from_jax
 from arbius_tpu_torch.models.video.convert import (
     convert_unet3d,

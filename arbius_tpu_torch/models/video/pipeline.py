@@ -249,3 +249,12 @@ class Text2VideoPipeline:
         if as_device:
             return frames
         return frames.cpu().numpy()
+
+
+# mesh layouts this family ships, the reference's data: samples over dp,
+# frames over sp (ring or Ulysses temporal attention, halo-exchanged
+# frame-axis convolutions), kernels over tp; its batch axis is
+# hard-partitioned over dp. On the port the factory refuses it until it
+# is ported (ROADMAP queue 1 item 11).
+MESH_LAYOUTS: tuple[tuple[str, ...], ...] = (("dp", "sp", "tp"),)
+MESH_BATCH_HARD = True

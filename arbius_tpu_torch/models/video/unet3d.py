@@ -27,9 +27,12 @@ sample's T frames (of one guidance half) per cuDNN call
 (`samples_per_conv`), and each frame-axis convolution one sample per
 call, so a task's bits do not depend on the tasks beside it.
 
-The reference's frame-axis sequence parallelism (`sp_axis`, ring or
-ulysses temporal attention over a mesh) is not ported: a config that asks
-for it is refused (ROADMAP queue 1 item 11).
+The reference's frame-axis sequence parallelism (`sp_axis`: the UNet3D's
+frames over the sp lanes, halo-exchanged temporal convolutions and ring
+or Ulysses temporal attention) is not wired into the model yet; the
+collectives and both attentions exist (parallel/collectives.py,
+ops/ring.py, ops/ulysses.py). A config that asks for it is refused
+(ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 

@@ -8,58 +8,14 @@ stake buffers, automine, RPC port, db path. Parsed + schema-validated
 up front (the reference only JSON-parses, start.ts:12-18; we reject
 unknown keys and wrong types at boot instead of failing mid-mine).
 
-Copy of arbius_tpu/node/config.py. Its body differs in two places:
-  - `MiningConfig` checks `mesh` with `validate_axes` below, the port's
-    copy of the JAX-free function in arbius_tpu/parallel/mesh.py (that
-    module imports JAX);
-  - `MiningConfig.compile_cache_dir` defaults to None: the port has no
-    compile cache, and `MinerNode` refuses a node that names one.
+Copy of arbius_tpu/node/config.py. Its body differs in one place:
+`MiningConfig.compile_cache_dir` defaults to None: the port has no
+compile cache, and `MinerNode` refuses a node that names one.
 """
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-
-import numpy as np
-
-# mesh axis order (arbius_tpu/parallel/mesh.py)
-AXIS_ORDER = ("pp", "dp", "sp", "tp")
-
-
-def validate_axes(sizes: dict, n_devices: int | None = None,
-                  *, where: str = "mesh") -> dict[str, int]:
-    """Validate a requested axis->size mapping against the axis registry
-    and (when given) the visible device count, with boot-quality errors.
-
-    Before this check existed a bad shape survived until deep inside
-    XLA device placement and surfaced as an opaque reshape failure; a
-    miner operator mistyping ``{"dp": 4, "tp": 4}`` on an 8-chip host
-    deserves one sentence naming the fix. Returns the full
-    ``{axis: size}`` dict over AXIS_ORDER (missing axes filled with 1).
-    """
-    unknown = sorted(set(sizes) - set(AXIS_ORDER))
-    if unknown:
-        raise ValueError(
-            f"{where}: unknown axis name(s) {unknown} — valid axes are "
-            f"{list(AXIS_ORDER)} (dp=data/tasks, sp=sequence/frames, "
-            "tp=tensor, pp=pipeline stages)")
-    full: dict[str, int] = {}
-    for axis in AXIS_ORDER:
-        v = sizes.get(axis, 1)
-        if not isinstance(v, int) or isinstance(v, bool) or v < 1:
-            raise ValueError(
-                f"{where}: axis {axis!r} must be a positive integer, got "
-                f"{v!r}")
-        full[axis] = v
-    if n_devices is not None:
-        want = int(np.prod(list(full.values())))
-        if want > n_devices:
-            hint = (" — shrink an axis, or (CPU testing) set XLA_FLAGS="
-                    f"--xla_force_host_platform_device_count={want}")
-            raise ValueError(
-                f"{where}: shape {{{', '.join(f'{a}: {n}' for a, n in sizes.items())}}} "
-                f"needs {want} devices but jax sees {n_devices}{hint}")
-    return full
 
 
 class ConfigError(ValueError):
@@ -644,6 +600,8 @@ class MiningConfig:
         import re as _re
 
         if self.mesh is not None:
+            from arbius_tpu_torch.parallel.mesh import validate_axes
+
             if not isinstance(self.mesh, dict) or not self.mesh:
                 raise ConfigError(
                     "mesh must be a non-empty {axis: size} object "

@@ -10,9 +10,14 @@ or fp8 it quantizes the weights once at load, after the `weights_dtype`
 cast, as the reference's factory does (load or init, cast, quantize), so
 a loaded checkpoint is quantized exactly as the seeded init is. The
 prompt tokenizer is the byte tokenizer or, with `tokenizer: "clip_bpe"`,
-CLIP's BPE over the configured vocabulary files. Meshes are not ported
-yet: a config that names one raises `ConfigError` naming the ROADMAP.md
-queue 1 item that ports it.
+CLIP's BPE over the configured vocabulary files. A mesh is the port's
+mesh of lanes (parallel/mesh.py), built and audited here as the
+reference's factory does (`mesh_contracts`, `build_registry(mesh=)`):
+anythingv3 runs on a dp mesh, each lane a replica of its pipeline;
+robust_video_matting stays single-device. A layout a family does not run
+on the port yet (`mesh_refusal`: anythingv3's dp·tp, kandinsky2's and
+textgen's dp, the video family's dp·sp·tp, pp) raises `ConfigError`
+naming the ROADMAP.md queue 1 item that ports it.
 """
 from __future__ import annotations
 
@@ -113,13 +118,15 @@ def _load(pipe, m: ModelConfig, params, seed: int):
 
 
 def _runner(m: ModelConfig, *, device, params, seed: int,
-            precision: str = "bf16"):
+            precision: str = "bf16", mesh=None):
     """`m.template`'s runner over its pipeline (tiny or full config) on
-    `device` in `precision`, with the weights `_load` picks."""
+    `device` in `precision` (on `mesh`'s lanes, for anythingv3), with
+    the weights `_load` picks."""
     config_cls, pipeline_cls, runner_cls = _FAMILIES[m.template]
     cfg = config_cls.tiny() if m.tiny else config_cls()
+    kw = {"mesh": mesh} if mesh is not None else {}
     pipe = pipeline_cls(cfg, tokenizer=_tokenizer_for(m, cfg.text),
-                        device=device, precision=precision)
+                        device=device, precision=precision, **kw)
     return runner_cls(_load(pipe, m, params, seed))
 
 
@@ -190,16 +197,38 @@ def build_anythingv3(tiny: bool = False,
                                seed=seed))
 
 
+# the mesh layouts each family runs on the port (beside no mesh); the
+# rest of its MESH_LAYOUTS waits for ROADMAP queue 1 item 11
+_PORTED_LAYOUTS = {"anythingv3": (("dp",),)}
+
+
+def mesh_refusal(template: str | None, mesh: dict | None) -> str | None:
+    """Why `mesh` cannot run on the port yet, for `template` (None: for
+    any model), naming the ROADMAP.md queue 1 item that ports it; None
+    when it can."""
+    from arbius_tpu_torch.parallel.mesh import AXIS_ORDER
+
+    active = tuple(a for a in AXIS_ORDER if int((mesh or {}).get(a, 1)) > 1)
+    if "pp" in active:
+        return (f"mesh {mesh}: pipeline stages (parallel/pipeline.py) are "
+                "not ported yet (ROADMAP queue 1 item 11)")
+    if not active or template in (None, "robust_video_matting"):
+        return None   # matting stays single-device, as the reference's
+    if template in ("zeroscopev2xl", "damo"):
+        return (f"mesh {mesh}: the video family runs on one device; "
+                "frame-axis sequence parallelism waits for multi-device "
+                "(ROADMAP queue 1 item 11)")
+    if active not in _PORTED_LAYOUTS.get(template, ()):
+        return (f"mesh {mesh}: template {template} does not run the "
+                f"{'·'.join(active)} layout on the port yet (ROADMAP queue "
+                "1 item 11)")
+    return None
+
+
 def _check_ported(m: ModelConfig, mode: str, mesh: dict | None) -> None:
-    devices = 1
-    for size in (mesh or {}).values():
-        devices *= int(size)
-    if m.template in ("zeroscopev2xl", "damo") and devices > 1:
-        raise ConfigError(
-            f"model {m.id}: mesh {mesh} (sp_strategy "
-            f"{m.sp_strategy!r}): the video family runs on one device; "
-            "frame-axis sequence parallelism waits for multi-device "
-            "(ROADMAP queue 1 item 11)")
+    why = mesh_refusal(m.template, mesh)
+    if why:
+        raise ConfigError(f"model {m.id}: {why}")
     if m.template == "robust_video_matting" and mode != "bf16":
         # the stateful ConvGRU matting stream ships no quantized goldens
         raise ConfigError(
@@ -211,27 +240,62 @@ def _check_ported(m: ModelConfig, mode: str, mesh: dict | None) -> None:
                           "not a file (convert-checkpoint writes one)")
 
 
+# template -> the pipeline module publishing that family's mesh contract
+# as data (MESH_LAYOUTS, MESH_BATCH_HARD); robust_video_matting is absent
+# on purpose (never meshed). The family list check_mesh_contract audits.
+_MESH_CONTRACT_MODULES = {
+    "anythingv3": "arbius_tpu_torch.models.sd15.pipeline",
+    "kandinsky2": "arbius_tpu_torch.models.kandinsky2.pipeline",
+    "zeroscopev2xl": "arbius_tpu_torch.models.video.pipeline",
+    "damo": "arbius_tpu_torch.models.video.pipeline",
+    "textgen": "arbius_tpu_torch.models.textgen.pipeline",
+}
+
+
+def mesh_contracts(cfg: MiningConfig) -> dict:
+    """Enabled mesh-capable templates -> their pipeline modules, the
+    contract table `meshsolve.check_mesh_contract` boot-audits."""
+    import importlib
+
+    return {m.template: importlib.import_module(
+                _MESH_CONTRACT_MODULES[m.template])
+            for m in cfg.models
+            if m.enabled and m.template in _MESH_CONTRACT_MODULES}
+
+
 def build_registry(cfg: MiningConfig, device: str | torch.device = "cuda",
                    params: dict[str, torch.Tensor] | None = None,
-                   resolve_file=None) -> ModelRegistry:
+                   resolve_file=None, *, mesh=None) -> ModelRegistry:
     """Construct runners for every enabled model in the config, on
     `device`, with `params` (a state dict from the bridge, for a config
     whose enabled models are of one family) or the seeded random init
     (seed 0, as the reference's factory).
 
+    When `cfg.mesh` is set (and no `mesh` is passed) the solve mesh is
+    built here over `device`'s lanes, validated against the lanes the
+    host has, and audited against the families' contracts; anythingv3's
+    pipeline then holds its weights on every lane's device.
+
     `resolve_file` (cid -> bytes) is needed only by file-input templates
     (robust_video_matting); without it, and without a probe golden, such
     a model is skipped with a warning rather than failing the node."""
+    enabled = [m for m in cfg.models if m.enabled]
+    for m in enabled:
+        if m.template in TEMPLATES:
+            _check_ported(m, cfg.precision.mode_for(m.template), cfg.mesh)
+    if mesh is None and cfg.mesh is not None:
+        from arbius_tpu_torch.parallel import meshsolve
+
+        mesh = meshsolve.boot_mesh(cfg.mesh, device=device)
+        meshsolve.check_mesh_contract(mesh, mesh_contracts(cfg),
+                                      cfg.canonical_batch)
     reg = ModelRegistry()
-    for m in cfg.models:
-        if not m.enabled:
-            continue
+    for m in enabled:
         if m.template not in TEMPLATES:
             log.warning("model %s: unknown template %r; skipping",
                         m.id, m.template)
             continue
         mode = cfg.precision.mode_for(m.template)
-        _check_ported(m, mode, cfg.mesh)
         if m.template == "robust_video_matting" and resolve_file is None \
                 and not (m.golden or {}).get("probe_video"):
             log.warning("model %s: robust_video_matting needs a "
@@ -247,7 +311,9 @@ def build_registry(cfg: MiningConfig, device: str | torch.device = "cuda",
         elif m.template == "robust_video_matting":
             runner = _rvm(m, resolve_file, **kw)
         else:
-            runner = _runner(m, precision=mode, **kw)
+            runner = _runner(m, precision=mode, **kw,
+                             mesh=mesh if m.template == "anythingv3"
+                             else None)
         golden = None
         if m.golden is not None:
             golden = (dict(m.golden["input"]), int(m.golden["seed"]),

@@ -20,16 +20,20 @@ Reference call-stack parity (SURVEY.md §3):
 Time/blocks come from the chain facade — no wall clock — so tests drive
 the node deterministically.
 
-Copy of arbius_tpu/node/node.py for the port, which runs on one CUDA
-device. What reaches JAX or an unported module changes:
+Copy of arbius_tpu/node/node.py for the port. What reaches JAX or an
+unported module changes:
   - `MinerNode` refuses, with `BootError` naming the ROADMAP item that
     ports it, every setting that needs a module the port lacks: a mesh
-    of more than one device, `aot_cache.enabled`, `compile_cache_dir`
-    and `perfscope.enabled` (`_refuse_unported`). So the mesh build and
-    contract audit, the AOT cache and the perfscope cards are gone from
-    the body, with the mesh intake gate; no bucket is disk-warm
-    (`bucket_disk_warm`, `_disk_warm_tags` stays empty) and
-    `solve_layout` stays "single". `_observe_infer` feeds the
+    layout a configured family does not run on the port yet (anythingv3
+    runs dp; the factory's `mesh_refusal`), `aot_cache.enabled`,
+    `compile_cache_dir` and `perfscope.enabled` (`_refuse_unported`).
+    The mesh is the port's mesh of lanes (parallel/mesh.py): boot builds
+    and validates it (a shape larger than the lanes the host has is
+    refused with the reference's sentence), sets `solve_layout`, audits
+    the contract and gates intake, as the reference does. The AOT cache
+    and the perfscope cards are gone from the body; no bucket is
+    disk-warm (`bucket_disk_warm`, `_disk_warm_tags` stays empty).
+    `_observe_infer` feeds the
     cost-tagged infer sample only (no perfscope card to bind). The
     staged pipeline (`pipeline.enabled`, node/pipeline.py), the alert
     engine (`alerts.enabled`, obs/healthwatch.py: its `perf_drift` and
@@ -152,14 +156,15 @@ def _chrome_trace(directory: str, name: str):
 def _refuse_unported(config: MiningConfig) -> None:
     """BootError for every setting whose module the port does not have
     yet, naming the ROADMAP.md queue 1 item that ports it."""
-    if config.mesh is not None:
-        n = 1
-        for v in config.mesh.values():
-            n *= int(v)
-        if n > 1:
-            raise BootError(
-                f"mesh {config.mesh}: the port runs on one device; meshes "
-                "wait for multi-device (ROADMAP queue 1 item 11)")
+    from arbius_tpu_torch.node.factory import mesh_refusal
+
+    why = mesh_refusal(None, config.mesh)
+    if why:
+        raise BootError(why)
+    for m in config.models:
+        why = mesh_refusal(m.template, config.mesh) if m.enabled else None
+        if why:
+            raise BootError(f"model {m.id}: {why}")
     refused = (
         (config.aot_cache.enabled, "aot_cache.enabled", 12),
         (bool(config.compile_cache_dir), "compile_cache_dir", 12),
@@ -179,6 +184,7 @@ class MinerNode:
         self.chain = chain
         self.config = config
         self.registry = registry
+        self.mesh = None          # built + validated at boot (cfg.mesh)
         self.db = db or NodeDB(config.db_path)
         if store is None and config.store_dir:
             from arbius_tpu_torch.node.store import ContentStore
@@ -254,7 +260,8 @@ class MinerNode:
         self._disk_warm_tags: frozenset = frozenset()
         # mesh-layout tag of the solve programs (part of every cost-model
         # key: a tp2 bucket and a single-device bucket are different
-        # programs with different chip-seconds); one device in the port
+        # programs with different chip-seconds); refined at boot once
+        # the mesh is up
         self.solve_layout = "single"
         # per-model precision modes (docs/quantization.md): fixed at
         # config load — part of every bucket key and cost tag, so an
@@ -303,6 +310,16 @@ class MinerNode:
 
     # -- boot (start.ts:11-52 + index.ts:971-1020) -----------------------
     def boot(self, *, skip_self_test: bool = False) -> None:
+        # solve mesh (docs/multichip.md): built and validated here — a
+        # shape that does not fit the lanes the host has dies at boot
+        # with one clear sentence. Also publishes arbius_mesh_devices and
+        # audits the layout against each family's contract.
+        # (build_registry builds its own mesh for the runners from the
+        # same config, so the two always agree.)
+        from arbius_tpu_torch.parallel import meshsolve
+
+        self.mesh = meshsolve.boot_mesh(self.config.mesh,
+                                        registry=self.obs.registry)
         # fleet-composition surface (docs/quantization.md): how many
         # enabled models this node serves at each precision mode — the
         # signal a mixed-precision fleet's pricing/packing reads
@@ -316,6 +333,19 @@ class MinerNode:
                 1 for m in self.config.models if m.enabled
                 and self.solve_modes.get(m.id.lower()) == mode)),
                 mode=mode)
+        if self.mesh is not None:
+            from arbius_tpu_torch.parallel.mesh import mesh_tag
+
+            # cost-model rows are keyed per layout (under the state lock:
+            # an early-started ControlRPC debug view must never read the
+            # tag mid-publication)
+            with self.state_lock:
+                self.solve_layout = mesh_tag(self.mesh)
+        from arbius_tpu_torch.node.factory import mesh_contracts
+
+        meshsolve.check_mesh_contract(self.mesh,
+                                      mesh_contracts(self.config),
+                                      self.config.canonical_batch)
         self.db.clear_jobs_by_method("validatorStake")
         self.db.clear_jobs_by_method("automine")
         if self.chain.version() > MINER_VERSION:
@@ -638,6 +668,22 @@ class MinerNode:
             log.info("task %s fee %d below cost floor — skipping",
                      taskid, task.fee)
             return
+        if self.mesh is not None:
+            # mesh-shape intake gate (docs/multichip.md): a video task
+            # whose num_frames does not divide sp cannot run on this
+            # layout — skip it before queuing. Not marked invalid: the
+            # task is protocol-valid and other layouts can mine it.
+            sp = self.mesh.shape.get("sp", 1)
+            frames = hydrated.get("num_frames")
+            if sp > 1 and frames is not None and int(frames) % sp:
+                log.info("task %s num_frames=%s not divisible by mesh "
+                         "sp=%d — not mineable under this layout, "
+                         "skipping", taskid, frames, sp)
+                self.obs.registry.counter(
+                    "arbius_tasks_unmineable_total",
+                    "Tasks skipped because their shape cannot run on "
+                    "the configured mesh layout").inc()
+                return
         self.db.store_task_input(taskid, "", hydrated)
         if self.store is not None or self.pinner is not None:
             # pin the raw input so contestation evidence stays

@@ -13,9 +13,17 @@ Runners must be deterministic in (input, seed): the CID is what gets
 keccak'd into the on-chain commitment. cuBLAS and cuDNN choose kernels by
 batch size, so every dispatch is padded to the canonical batch: one
 bucket, one batch size, one determinism class.
+
+On a dp mesh (`SD15Runner` over a pipeline built with `mesh=`) the
+runner sends each dispatch, a whole canonical batch, to the next lane in
+turn, and `solve_files_batch` keeps one chunk in flight per lane: each
+lane runs the single-device program on the chunks mesh-off would run,
+so the CIDs are mesh-off's by construction (node/pipeline.py's chunks
+take the lanes the same way).
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import Callable
 
@@ -132,18 +140,21 @@ def _solve_files_batch(model: RegisteredModel, items: list[tuple[dict, int]],
     dispatch = getattr(model.runner, "dispatch", None)
     finalize = getattr(model.runner, "finalize", None)
     if dispatch is not None and finalize is not None and len(chunks) > 1:
-        # one-deep pipeline: queue chunk i+1 on the card BEFORE copying
-        # and encoding chunk i, so the host PNG encode overlaps the
-        # card's compute. Output order and bytes are identical to the
-        # serial path; only the schedule changes.
-        pending = None  # (dispatched chunk, real count)
+        # queue chunk i+1 on the card BEFORE copying and encoding chunk
+        # i, so the host PNG encode overlaps the card's compute; on a dp
+        # mesh one chunk more per lane, so every lane has one queued.
+        # Output order and bytes are identical to the serial path; only
+        # the schedule changes.
+        ahead = max(1, getattr(model.runner, "dp", 1))
+        pending: deque = deque()  # (dispatched chunk, real count)
         for chunk, real in chunks:
-            dev = dispatch(chunk)
-            if pending is not None:
+            pending.append((dispatch(chunk), real))
+            if len(pending) > ahead:
                 out.extend(_check_declared(model, f)
-                           for f in finalize(*pending))
-            pending = (dev, real)
-        out.extend(_check_declared(model, f) for f in finalize(*pending))
+                           for f in finalize(*pending.popleft()))
+        while pending:
+            out.extend(_check_declared(model, f)
+                       for f in finalize(*pending.popleft()))
         return out
     for chunk, real in chunks:
         files = run_batch(chunk)
@@ -204,6 +215,12 @@ class SD15Runner:
     def __init__(self, pipeline, out_name: str = "out-1.png"):
         self.pipeline = pipeline
         self.out_name = out_name
+        self._lane = 0   # the lane of the next dispatch on a dp mesh
+
+    @property
+    def dp(self) -> int:
+        """Lanes the dispatches take in turn (1 without a mesh)."""
+        return getattr(self.pipeline, "dp", 1)
 
     def __call__(self, hydrated: dict, seed: int) -> dict:
         return self.run_batch([(hydrated, seed)])[0]
@@ -215,10 +232,20 @@ class SD15Runner:
         return self.finalize(self.dispatch(items), len(items))
 
     def dispatch(self, items: list[tuple[dict, int]]):
-        """Queue the bucket on the card and return without waiting for it
-        (`_to_host`)."""
+        """Queue the bucket on the card (the next lane's, on a dp mesh)
+        and return without waiting for it (`_to_host`)."""
+        if self.dp == 1:
+            return _to_host(self._generate(items))
+        from arbius_tpu_torch.parallel.mesh import on_device
+
+        lane = self._lane
+        self._lane = (lane + 1) % self.dp
+        with on_device(self.pipeline.lane_pipeline(lane).device):
+            return _to_host(self._generate(items, lane=lane))
+
+    def _generate(self, items: list[tuple[dict, int]], **kw):
         first = items[0][0]
-        return _to_host(self.pipeline.generate(
+        return self.pipeline.generate(
             prompts=[h["prompt"] for h, _ in items],
             negative_prompts=[h.get("negative_prompt", "") for h, _ in items],
             seeds=[s for _, s in items],
@@ -228,8 +255,7 @@ class SD15Runner:
             guidance_scale=[float(h.get("guidance_scale", 7.5))
                             for h, _ in items],
             scheduler=first.get("scheduler", "DDIM"),
-            as_device=True,
-        ))
+            as_device=True, **kw)
 
     def finalize(self, dispatched, n_real: int) -> list[dict]:
         """Dispatched chunk -> per-item encoded files (waits for the

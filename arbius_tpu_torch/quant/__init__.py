@@ -11,6 +11,7 @@ from arbius_tpu_torch.quant.core import (
     is_quantized_leaf,
     quantize_leaf,
     quantize_state,
+    quantized_dot,
     storage_dtype,
 )
 from arbius_tpu_torch.quant.modes import (
@@ -27,6 +28,6 @@ __all__ = [
     "DEFAULT_MODE", "FP8_BOUND", "INT8_BOUND", "PRECISION_MODES",
     "QUANT_KEYS", "QuantAxis", "QuantizedWeights", "dequantize_first",
     "dequantize_leaf", "dequantize_state", "is_quantized_leaf", "mode_tag",
-    "quantize_leaf", "quantize_state", "storage_dtype", "validate_mode",
-    "wire_width",
+    "quantize_leaf", "quantize_state", "quantized_dot", "storage_dtype",
+    "validate_mode", "wire_width",
 ]

@@ -34,8 +34,12 @@ them (`qv.float() * qs`, rounded to the parameter's dtype, as flax casts
 the float32 dequantized kernel at use) and end by emptying them, so the
 full-width weights live only for the chunk.
 
-`quantized_dot` (activation-quantized products) is not ported: its users
-are multi-device (ROADMAP.md queue 1 item 11).
+`quantized_dot` is the reference's activation-quantized product: int8
+operands accumulate exactly in int32 and fp8 ones in float32, scaled by
+the float32 product of both scales. No solve path calls it (its
+reference users are graph-lint fixtures), so it is plain torch; a
+hand-written int8 tensor-core kernel waits for a W8A8 path (ROADMAP.md
+queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -208,3 +212,35 @@ def dequantize_first(program):
             return program(self, *args, **kwargs)
 
     return run
+
+
+# int8 products summed per block of the contracted axis: the int32 block
+# sums stay exact, and a block's broadcast product stays small
+_DOT_BLOCK = 64
+
+
+def quantized_dot(qx: torch.Tensor, qw: torch.Tensor, sx: torch.Tensor,
+                  sw: torch.Tensor, mode: str = "int8") -> torch.Tensor:
+    """Fully quantized product `qx [..., K] @ qw [K, ...]`, dequantized
+    by `sx[..., None] * sw` in float32. int8 accumulates exactly in int32
+    (wrapping as int32 does, on every device: no float accumulation of
+    the products), fp8 in float32."""
+    validate_mode(mode)
+    if mode == DEFAULT_MODE:
+        raise ValueError("quantized_dot needs a quantized mode "
+                         "(int8|fp8) — bf16 is the unquantized path")
+    k = qx.shape[-1]
+    w = qw.reshape(k, -1)
+    x = qx.reshape(-1, k)
+    if mode == "int8":
+        xi, wi = x.to(torch.int32), w.to(torch.int32)
+        acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.int32,
+                          device=x.device)
+        for k0 in range(0, k, _DOT_BLOCK):
+            acc += (xi[:, k0:k0 + _DOT_BLOCK, None]
+                    * wi[None, k0:k0 + _DOT_BLOCK]).sum(
+                        dim=1, dtype=torch.int32)
+    else:
+        acc = torch.matmul(x.float(), w.float())
+    out = acc.reshape(*qx.shape[:-1], *qw.shape[1:])
+    return out.to(torch.float32) * (sx[..., None] * sw)

@@ -26,10 +26,10 @@ the sqlite commit count sub-linear in tasks. Reports are
 byte-identical per (tasks, workers, seed).
 
 Copy of arbius_tpu/sim/fleet.py for the port. The reference's `aot_dir`
-(a shared AOT executable cache under meshsolve's probe runner) needs two
-modules the port does not have yet: `FleetSimHarness` refuses it with
-`ValueError` naming ROADMAP queue 1 item 12, and every worker mines with
-the hash-fake `FaultyRunner`.
+(a shared AOT executable cache under meshsolve's probe runner) needs the
+AOT cache, which the port does not have yet: `FleetSimHarness` refuses it
+with `ValueError` naming ROADMAP queue 1 item 12, and every worker mines
+with the hash-fake `FaultyRunner`.
 """
 # detlint: enforce[DET101,DET102,DET103,DET105]
 from __future__ import annotations
@@ -111,8 +111,8 @@ class FleetSimHarness(SimHarness):
                              "spec — use SimHarness")
         if aot_dir is not None:
             raise ValueError(
-                f"aot_dir {aot_dir!r}: the AOT cache and its probe runner "
-                "are not ported yet (ROADMAP queue 1 item 12)")
+                f"aot_dir {aot_dir!r}: the AOT cache is not ported yet "
+                "(ROADMAP queue 1 item 12)")
         self.workdir = workdir
         self.workers: list[MinerNode] = []
         self.feeds: list[LeaseFeed] = []

@@ -31,13 +31,12 @@ The result bundle (`SimResult`) is everything the invariant checkers
 audit; `run_scenario()` is the one-call front door the CLI and tests
 share.
 
-Copy of arbius_tpu/sim/harness.py for the port. The reference's probe
-runner (meshsolve's `ShardedImageProbe`, a real sharded program) is not
-ported, so `SimHarness` refuses, with `ValueError` naming the ROADMAP
-item that ports each: `mesh` (item 11), a precision other than bf16,
-which needs that probe (item 11), and `perfscope=True` (item 12). Every
-run mines with the hash-fake runners of sim/faults.py, as the
-reference's runs without a mesh do.
+Copy of arbius_tpu/sim/harness.py for the port. The probe runner is
+meshsolve's `ShardedImageProbe` on the port's mesh of lanes
+(parallel/mesh.py): `mesh` and a precision other than bf16 run as the
+reference's do, on the lanes the caller set (`set_virtual_lanes` for
+the CPU). `perfscope=True` is refused with `ValueError` naming ROADMAP
+queue 1 item 12.
 """
 # detlint: enforce[DET101,DET102,DET103,DET105]
 from __future__ import annotations
@@ -62,6 +61,7 @@ from arbius_tpu_torch.node import (
 from arbius_tpu_torch.node.config import (
     AlertsConfig,
     PipelineConfig,
+    PrecisionConfig,
     SchedConfig,
 )
 from arbius_tpu_torch.node.solver import EVIL_CID
@@ -87,23 +87,6 @@ JUROR = "0x" + "dc" * 20
 START_TIME = 100_000
 EMITTED_WAD = 100_000        # pseudo-supply so minimum/slash are nonzero
 _HEARTBEATS = ("automine", "validatorStake")
-
-
-def _refuse_unported(mesh: dict | None, precision: str,
-                     perfscope: bool) -> None:
-    """ValueError for every setting that needs a module the port does
-    not have yet, naming the ROADMAP.md queue 1 item that ports it."""
-    if mesh is not None:
-        raise ValueError(
-            f"mesh {mesh}: the probe runner (meshsolve's ShardedImageProbe) "
-            "is not ported yet (ROADMAP queue 1 item 11)")
-    if precision != "bf16":
-        raise ValueError(
-            f"precision {precision!r} needs the probe runner, which is not "
-            "ported yet (ROADMAP queue 1 item 11)")
-    if perfscope:
-        raise ValueError("perfscope: not ported yet (ROADMAP queue 1 "
-                         "item 12)")
 
 
 class _CleanTransport:
@@ -205,7 +188,9 @@ class SimHarness:
         self.db_path = db_path
         self.node_cls = node_cls
         self.pipeline = pipeline
-        _refuse_unported(mesh, precision, perfscope)
+        if perfscope:
+            raise ValueError("perfscope: not ported yet (ROADMAP queue 1 "
+                             "item 12)")
         # healthwatch alert engine (docs/healthwatch.md): bookkeeping-
         # only — CIDs must match a healthwatch-off run byte for byte,
         # and SIM113 audits the fault→alert coverage of every run that
@@ -221,6 +206,33 @@ class SimHarness:
 
             self.witness = ConcWitness()
             self.witness.register_root("tick")
+        # mesh scenarios (docs/multichip.md): a `mesh` config swaps the
+        # hash-fake FaultyRunner for meshsolve's ShardedImageProbe — a
+        # real sharded program over the mesh's lanes (the virtual lanes
+        # the caller set, on the CPU in tests), fault-gated per dispatch
+        # exactly where FaultyRunner gates. The
+        # probe's bytes are layout-invariant by construction, so a run
+        # at mesh={"dp":2} must produce the same CIDs as mesh=None
+        # (tests/test_meshsolve.py pins it); SIM101-109 audit unchanged.
+        # mesh={} means "probe runner, no mesh" — the equality baseline.
+        self.mesh_cfg = mesh
+        self.mesh = None
+        if mesh is not None and mesh:
+            from arbius_tpu_torch.parallel import meshsolve
+
+            self.mesh = meshsolve.boot_mesh(dict(mesh))
+        # precision mode (docs/quantization.md): a non-bf16 mode needs
+        # the probe runner (the hash-fake FaultyRunner has no program
+        # to quantize), quantizes the probe weights, and rides
+        # every bucket key / cost tag through the node — SIM101-112
+        # must hold at int8 exactly as at bf16
+        from arbius_tpu_torch.quant import validate_mode
+
+        self.precision = validate_mode(precision)
+        if self.precision != "bf16" and mesh is None:
+            raise ValueError(
+                f"precision {precision!r} needs the probe runner — pass "
+                "mesh={} (probe, no mesh) or a real mesh config")
 
         self.token = TokenLedger()
         self.engine = Engine(self.token, start_time=START_TIME)
@@ -316,12 +328,25 @@ class SimHarness:
             pipeline=PipelineConfig(enabled=True, depth=2,
                                     encode_workers=2, max_inflight_pins=2)
             if self.pipeline else PipelineConfig(),
-            canonical_batch=1,
+            # canonical_batch 2 so a dp2 mesh actually shards the
+            # dispatch (batch 1 degrades to replicated — still correct,
+            # but then the scenario would not exercise the dp path);
+            # the mesh-off probe baseline runs the same batch so the
+            # chunking is identical and only the layout differs
+            mesh=dict(self.mesh_cfg) if self.mesh_cfg else None,
+            canonical_batch=2 if self.mesh_cfg is not None else 1,
+            precision=PrecisionConfig(default=self.precision),
             alerts=AlertsConfig(enabled=True)
             if self.healthwatch else AlertsConfig())
         self.result.pipeline_enabled = self.pipeline
         self.result.healthwatch_enabled = self.healthwatch
-        if self.scenario.template == "textgen":
+        if self.mesh_cfg is not None:
+            from arbius_tpu_torch.parallel.meshsolve import ShardedImageProbe
+
+            runner = ShardedImageProbe(mesh=self.mesh,
+                                       gate=self.plane.runner_gate,
+                                       mode=self.precision)
+        elif self.scenario.template == "textgen":
             # text-family scenarios (docs/text-serving.md): the
             # token-progress hash-fake with the decode-stall edge
             runner = FaultyTextRunner(self.plane)
@@ -521,11 +546,16 @@ def run_scenario(scenario: Scenario, seed: int, *,
     auditable result. `node_cls` lets regression tests inject a
     deliberately buggy node (tests/test_sim.py double-commit);
     `pipeline=False` runs the shipped synchronous solve path instead of
-    the staged executor. `mesh`, a `precision` other than bf16 and
-    `perfscope=True` are refused (`_refuse_unported`). `witness=True`
-    instruments the node with the conclint runtime witness and attaches
-    its report to the result for SIM110 (docs/concurrency.md).
-    `healthwatch=True` enables the live
+    the staged executor. `mesh` (e.g. ``{"dp": 2}``) runs the solves as
+    real sharded programs on the mesh's lanes via the
+    meshsolve image probe; ``{}`` selects the probe with no mesh (the
+    CID-equality baseline for a meshed run). `witness=True` instruments
+    the node with the conclint runtime witness and attaches its report
+    to the result for SIM110 (docs/concurrency.md). `precision` runs
+    the solves at a quantized mode through the probe runner
+    (docs/quantization.md) — every SIM invariant must hold unchanged.
+    `perfscope=True` is refused (item 12). `healthwatch=True` enables
+    the live
     alert engine (docs/healthwatch.md) on every node the harness
     spawns — SIM113 then audits the fault→alert coverage (every
     injected fault class raised its mapped alert, clean runs raised

@@ -194,6 +194,24 @@ its own lines with timings:
      whose CIDs a fresh pipeline repeats. Prints the export, .bin save,
      conversion and load seconds, the file's bytes, the boot seconds, p50
      and sol/h of the mined chunks and the launches per route.
+  15. the mesh, after phase 14: MESH_LANES (4) virtual lanes set
+     explicitly on the card, every one on cuda:0 (printed: the lanes
+     share one card). (a) a MinerNode with mesh {"dp": 2} hosts
+     full-width anythingv3 (512x512, 20 steps, DPMSolverMultistep,
+     canonical batch 4, bf16 weights), passes its self-test against
+     phase 6's golden (the committed one where the build matches), mines
+     eight tasks through commit and reveal in two chunks (each a whole
+     canonical batch on the next lane), each on-chain CID equal to the
+     mesh-off solve of phase 6's model and to the node's model's chunk
+     by chunk, each chunk launching phase 4's counts per route; p50 per
+     chunk and sol/h. (b) ring and Ulysses attention with sp = 2 at the
+     UNet's largest self-attention ([8, 8, 4096, 40], bf16), each within
+     `error_bound` of single-lane attention in float32, Ulysses on the
+     wgmma route once a lane (counted), ring on no kernel. (c) the
+     quantized ring allreduce over 2 lanes in int8 and fp8: replicas
+     bit-identical, within its error model of the plain sum. (d) both
+     meshsolve probes give equal CIDs at mesh-off, dp2, and dp2·tp2
+     (image) or dp2·sp2 (sequence).
   13. ops and simnet, host only, in a process of its own started before
      phase 9 so that it runs beside the card's work (its output printed
      after phase 12): the port's DevnetNode served over HTTP
@@ -208,7 +226,8 @@ its own lines with timings:
 
 Each phase prints its wall seconds. Any failed check raises and the exit
 code is not 0. The last lines are the card, a `kernels` JSON line (with
-each route's launches in phases 4, 6, 7, 14, 8, 9, 10, 11 and 12) and
+each route's launches in phases 4, 6, 7, 14, 15 (the dp2 node's mining
+and the Ulysses call), 8, 9, 10, 11 and 12) and
 `{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, where CUDA is not available.
 """
@@ -645,8 +664,8 @@ def kernel_entries(flash, buckets: dict, launches: dict) -> list[dict]:
     """The `kernels` line: per route, phase 2's summaries (`buckets`, as
     `phase_kernels` returns them; times per 512x512 batch, and per batch
     of each other bucket timed) beside `launches`, each a name mapped to
-    the route's launch counts of one run (phases 4, 6, 7, 14, 8, 9, 10,
-    11 and 12; 10 and 11 launch none)."""
+    the route's launch counts of one run (phases 4, 6, 7, 14, 15, 8, 9,
+    10, 11 and 12; 10 and 11 launch none)."""
     tc_bound = "1e-4 + 2^-8 (|ref| + P|V|) in bf16"
     names = {"cuda_core": "flash_attention",
              "tensor_core": "flash_attention_tc",
@@ -1293,6 +1312,274 @@ def phase_checkpoint(torch, flash, expected, todo, fresh, golden,
         gc.collect()
         torch.cuda.empty_cache()
     return {"launches_node": launches, "launches_clip_node": clip_launches}
+
+
+# phase 15, the mesh on the one card: MESH_LANES virtual lanes, every one
+# on cuda:0 (the image probe's dp2·tp2 takes four); the dp2 node mines
+# MESH_TASKS tasks, two canonical chunks, one a lane; ring and Ulysses
+# attention run at the UNet's largest self-attention (batch 8, 8 heads,
+# 4096 tokens, D = 40) over sp = 2 lanes; the quantized ring allreduce
+# sums one such activation (4096 tokens x 320 channels) over 2 lanes
+MESH_LANES = 4
+MESH_TASKS = 8
+SP_LANES = 2
+SP_SHAPE = (2 * CANONICAL_BATCH, 8, (SIZE // 8) ** 2, 40)
+ALLREDUCE_SHAPE = (2 * CANONICAL_BATCH, (SIZE // 8) ** 2, 320)
+# the quantized allreduce's error model: int8 rounds to 1/127 of a chunk's
+# absmax, fp8 (e4m3: 3 mantissa bits) to 1/8 of a value, once a hop and
+# once in the gather
+INT8_STEPS, FP8_STEPS = 127.0, 8.0
+
+
+def phase_mesh(torch, flash, expected, fresh, golden,
+               golden_source: str) -> dict:
+    """Phase 15: the mesh of lanes on the one card (MESH_LANES virtual
+    lanes, set explicitly, all on cuda:0). (a) a MinerNode with mesh
+    {"dp": 2} hosts full-width anythingv3, passes its self-test against
+    `golden`, mines MESH_TASKS tasks through commit and reveal, each
+    chunk on the next lane, each on-chain CID the mesh-off solve's
+    (`fresh`, phase 6's model) and the node's model's chunk by chunk;
+    every chunk launches `expected`. (b) ring and Ulysses attention at
+    SP_SHAPE over SP_LANES lanes, each within `ops.flash.error_bound`
+    (the tensor-core routes') of single-lane attention in float32;
+    Ulysses launches the wgmma route once a lane, ring no kernel. (c)
+    the quantized ring allreduce over 2 lanes in int8 and fp8: replicas
+    bit-identical, within its error model of the plain sum. (d) both
+    probes' CIDs equal at mesh-off, dp2, and dp2·tp2 (image) or dp2·sp2
+    (sequence). Returns the launches per route of (a)'s mining and (b)'s
+    Ulysses call, and the timings."""
+    from arbius_tpu_torch import parallel
+    from arbius_tpu_torch.chain import WAD
+    from arbius_tpu_torch.l0 import taskid2seed
+    from arbius_tpu_torch.node import (
+        LocalChain,
+        MinerNode,
+        MiningConfig,
+        ModelConfig,
+        RegisteredModel,
+        build_registry,
+        solve_cid_batch,
+    )
+    from arbius_tpu_torch.ops.flash import (
+        error_bound,
+        flash_attention_reference,
+    )
+    from arbius_tpu_torch.ops.ring import ring_attention
+    from arbius_tpu_torch.ops.ulysses import ulysses_attention
+    from arbius_tpu_torch.parallel import meshsolve
+    from arbius_tpu_torch.parallel.collectives import (
+        quantized_ring_allreduce,
+    )
+    from arbius_tpu_torch.templates import hydrate_input, load_template
+    from arbius_tpu_torch.utils import card_info
+
+    card = card_info()
+    out = {}
+    parallel.set_virtual_lanes(MESH_LANES, "cuda")
+    try:
+        lanes = parallel.lane_devices()
+        check(all(d.type == "cuda" for d in lanes),
+              f"a lane off the card: {lanes}")
+        print(f"mesh: {MESH_LANES} virtual lanes set explicitly on "
+              f"{sorted({str(d) for d in lanes})}: the lanes share one card "
+              f"({card}; torch.cuda.device_count() "
+              f"{torch.cuda.device_count()})", flush=True)
+
+        # -- (a) the dp2 node ------------------------------------------------
+        template = load_template("anythingv3")
+        raws = [{"prompt": f"a lighthouse on a cliff at dusk, study {i}",
+                 "negative_prompt": "lowres, blurry", "width": SIZE,
+                 "height": SIZE, "num_inference_steps": STEPS,
+                 "scheduler": SCHEDULER, "guidance_scale": 7.5 + i}
+                for i in range(MESH_TASKS)]
+        miner, user = "0x" + "aa" * 20, "0x" + "01" * 20
+        tok, eng, mid, submit = template_world(raws, miner, user,
+                                               "anythingv3")
+        chain = LocalChain(eng, miner)
+        chain.validator_deposit(100 * WAD)
+        cfg = MiningConfig(canonical_batch=CANONICAL_BATCH, mesh={"dp": 2},
+                           models=(ModelConfig(
+                               id=mid, template="anythingv3",
+                               weights_dtype="bfloat16", golden=golden),))
+        t0 = time.perf_counter()
+        registry = build_registry(cfg, device="cuda")
+        node = MinerNode(chain, cfg, registry)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        node.boot()
+        boot_s = time.perf_counter() - t1
+        model = registry.get(mid)
+        pipe = model.runner.pipeline
+        check(node.solve_layout == "dp2" and model.runner.dp == 2
+              and all(d.type == "cuda" for d in pipe.mesh.devices),
+              f"dp2 node: layout {node.solve_layout}, lanes "
+              f"{pipe.mesh.devices}")
+        print(f"mesh: dp2 node built in {t1 - t0:.1f} s, lanes "
+              f"{[str(d) for d in pipe.mesh.devices]}; booted with the "
+              f"self-test passing against golden {golden['cid']} "
+              f"({golden_source}) in {boot_s:.2f} s", flush=True)
+        tids = submit()
+        flash.reset_launches()
+        t0 = time.perf_counter()
+        while node.tick():
+            pass
+        mine_s = time.perf_counter() - t0
+        launches = dict(flash.flash_attention.launches_by_route)
+        n_chunks = MESH_TASKS // CANONICAL_BATCH
+        check(node.db.failed_jobs() == [],
+              f"dp2 node failed jobs {node.db.failed_jobs()}")
+        check(launches == {r: n * n_chunks for r, n in expected.items()},
+              f"dp2 node launches {launches}, expected {expected} x "
+              f"{n_chunks}")
+        onchain = []
+        for tid in tids:
+            sol = eng.solutions.get(bytes.fromhex(tid[2:]))
+            check(sol is not None and sol.validator == miner,
+                  f"dp2 node: task {tid} not solved: {sol}")
+            cid = "0x" + sol.cid.hex()
+            check(chain.generate_commitment(tid, cid) in eng.commitments,
+                  f"dp2 node: task {tid}: no commitment matching {cid}")
+            onchain.append(cid)
+        infer = sum(node.metrics.stage_seconds["infer"])
+        node.close()
+        items = [(hydrate_input(raw, template), taskid2seed(tid))
+                 for raw, tid in zip(raws, tids)]
+        per_chunk = {}
+        for name, m in (("mesh-off", fresh), ("dp2", model)):
+            lat, cids = [], []
+            for c in range(n_chunks):
+                t0 = time.perf_counter()
+                cids += [cid for cid, _ in solve_cid_batch(
+                    m, items[c * CANONICAL_BATCH:(c + 1) * CANONICAL_BATCH],
+                    canonical_batch=CANONICAL_BATCH)]
+                lat.append(time.perf_counter() - t0)
+            check(cids == onchain, f"{name} solve {cids} != the dp2 node's "
+                  f"on-chain CIDs {onchain}")
+            per_chunk[name] = lat
+        p50 = {k: statistics.median(v) for k, v in per_chunk.items()}
+        print("mesh: dp2 node mined and revealed "
+              f"{MESH_TASKS} tasks in {n_chunks} chunks, one a lane, in "
+              f"{mine_s:.2f} s host time (infer {infer:.3f} s, "
+              f"{CANONICAL_BATCH * n_chunks * 3600 / infer:.1f} sol/h); "
+              f"on-chain CIDs {' '.join(onchain)} equal the mesh-off "
+              "solve's (phase 6's model) and the node's model's; per chunk "
+              "s " + ", ".join(f"{k} {[round(x, 3) for x in v]}"
+                               for k, v in per_chunk.items())
+              + "; p50 " + ", ".join(
+                  f"{k} {v:.3f} s ({CANONICAL_BATCH * 3600 / v:.1f} sol/h)"
+                  for k, v in p50.items())
+              + f"; flash launches per chunk "
+              f"{ {r: n // n_chunks for r, n in launches.items()} } "
+              f"({card})", flush=True)
+        out.update(launches_node=launches, node_p50=p50,
+                   node_sol_h=CANONICAL_BATCH * n_chunks * 3600 / infer)
+        del node, registry, model, pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (b) ring and Ulysses attention over sp lanes ---------------------
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        q, k, v = (torch.randn(SP_SHAPE, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+
+        def shards(t):
+            return [x.contiguous() for x in t.chunk(SP_LANES, dim=2)]
+
+        attn = {}
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention)):
+            fn(shards(q), shards(k), shards(v))   # warm-up
+            flash.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lanes_out = fn(shards(q), shards(k), shards(v))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            attn[name] = (torch.cat(lanes_out, dim=2), ms,
+                          dict(flash.flash_attention.launches_by_route))
+        ulysses_launches = attn["ulysses"][2]
+        check(ulysses_launches == {r: SP_LANES if r == "tensor_core_wgmma"
+                                   else 0 for r in flash.SOURCES},
+              f"Ulysses launched {ulysses_launches}, not the wgmma route "
+              "once a lane")
+        check(not any(attn["ring"][2].values()),
+              f"ring attention launched {attn['ring'][2]}")
+        ref = flash_attention_reference(q.float(), k.float(), v.float())
+        bound = error_bound(q, k, v, "tensor_core_wgmma")
+        worst = {}
+        for name, (o, ms, _) in attn.items():
+            err = (o.float() - ref).abs()
+            worst[name] = float((err / bound).max())
+            check(bool((err <= bound).all()), f"{name} attention off "
+                  f"single-lane attention by {float(err.max())} (worst "
+                  f"error/bound {worst[name]:.3f})")
+        del ref, bound
+        print(f"mesh: sp={SP_LANES} attention at [B, H, S, D] = "
+              f"{list(SP_SHAPE)} bf16 within error_bound of single-lane "
+              "attention in float32: "
+              + ", ".join(f"{n} {attn[n][1]:.1f} ms (worst error/bound "
+                          f"{worst[n]:.3f})" for n in attn)
+              + f"; Ulysses launches {ulysses_launches}, ring none "
+              f"({card})", flush=True)
+        out.update(launches_ulysses=ulysses_launches,
+                   attention_ms={n: attn[n][1] for n in attn},
+                   attention_worst=worst)
+        del attn, q, k, v
+
+        # -- (c) the quantized ring allreduce ---------------------------------
+        allreduce = {}
+        for mode, bound_q in (("int8", INT8_STEPS), ("fp8", FP8_STEPS)):
+            xs = [torch.randn(ALLREDUCE_SHAPE, generator=gen,
+                              device="cuda") * (1 + i) for i in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = quantized_ring_allreduce(xs, "sp", mode=mode)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            check(torch.equal(ys[0], ys[1]),
+                  f"{mode} allreduce replicas differ")
+            err = float((ys[0] - (xs[0] + xs[1])).abs().max())
+            limit = float(2 * len(xs) * (xs[0].abs() + xs[1].abs()).max()
+                          / bound_q)
+            check(err <= limit, f"{mode} allreduce off the plain sum by "
+                  f"{err} > {limit}")
+            allreduce[mode] = (err, limit, ms)
+        print(f"mesh: quantized ring allreduce of {list(ALLREDUCE_SHAPE)} "
+              "float32 over 2 lanes: replicas bit-identical; "
+              + ", ".join(f"{m} max error {e:.5f} (limit {lim:.5f}) in "
+                          f"{ms:.1f} ms" for m, (e, lim, ms)
+                          in allreduce.items()) + f" ({card})", flush=True)
+        out["allreduce"] = allreduce
+
+        # -- (d) the probes at every layout ------------------------------------
+        probe_items = [(hydrate_input({"prompt": f"mesh task {i}",
+                                       "negative_prompt": ""}, template),
+                        1000 + i) for i in range(5)]
+        for cls, layouts in (
+                (meshsolve.ShardedImageProbe, ({"dp": 2}, {"dp": 2, "tp": 2})),
+                (meshsolve.ShardedSeqProbe, ({"dp": 2}, {"dp": 2, "sp": 2}))):
+            def cids(runner):
+                return [c for c, _ in solve_cid_batch(
+                    RegisteredModel(id=mid, template=template, runner=runner),
+                    probe_items, canonical_batch=CANONICAL_BATCH)]
+
+            base = cids(cls(mesh=None))
+            check(len(set(base)) == len(probe_items),
+                  f"{cls.__name__}: CIDs not distinct")
+            for layout in layouts:
+                mesh = meshsolve.boot_mesh(layout)
+                got = cids(cls(mesh=mesh))
+                check(got == base, f"{cls.__name__} at "
+                      f"{meshsolve.mesh_tag(mesh)}: {got} != mesh-off {base}")
+            print(f"mesh: {cls.__name__} CIDs equal at mesh-off, "
+                  + ", ".join(meshsolve.mesh_tag(meshsolve.boot_mesh(l))
+                              for l in layouts)
+                  + f" ({len(probe_items)} tasks, canonical batch "
+                  f"{CANONICAL_BATCH})", flush=True)
+    finally:
+        parallel.set_virtual_lanes(None)
+    return out
+
 
 
 NODE_RUN_KEYS = ("0x" + "11" * 32, "0x" + "22" * 32)   # miner, user
@@ -3788,6 +4075,11 @@ def main() -> int:
                             node["golden"], node["golden_source"],
                             node["direct"])
     wall_mark("14 checkpoint and CLIP BPE")
+
+    # -- 15. the mesh of lanes on the one card -------------------------------
+    mesh = phase_mesh(torch, flash, expected, node["fresh"], node["golden"],
+                      node["golden_source"])
+    wall_mark("15 mesh")
     node_launches = node["launches"]
     del node
     gc.collect()
@@ -3828,6 +4120,8 @@ def main() -> int:
         "launches_node_run": node_run_launches,
         "launches_checkpoint_node": ckpt["launches_node"],
         "launches_clip_bpe_node": ckpt["launches_clip_node"],
+        "launches_mesh_node": mesh["launches_node"],
+        "launches_ulysses": mesh["launches_ulysses"],
         "launches_kandinsky2": k2["launches"],
         "launches_kandinsky2_node": k2["launches_node"],
         "launches_video": video["launches"],

@@ -79,19 +79,20 @@ RENAMED_COPIES = [
 
 # twins whose body differs, and why (each module's docstring says how)
 CHANGED_TWINS = {
-    "node/node.py": "refuses unported settings at boot; no mesh, AOT "
-                    "cache or perfscope; self-test at the canonical "
-                    "batch; torch.profiler",
+    "node/node.py": "refuses unported settings at boot (a mesh layout a "
+                    "family does not run on the port yet, pp, AOT cache, "
+                    "perfscope); the mesh of lanes; self-test at the "
+                    "canonical batch; torch.profiler",
     "cli.py": "demo-mine and record-golden on --device (the golden "
               "with its build); convert-checkpoint writes the port's "
               "one-file checkpoint from a meta-device template and reads "
               ".safetensors with its own reader; node-run on --device, "
               "paced ticks, SIGTERM and an exit summary",
-    "node/config.py": "own copy of validate_axes; no compile cache by "
-                      "default; a checkpoint is one file",
-    "sim/harness.py": "refuses a mesh, a precision other than bf16 and "
-                      "perfscope (no probe runner)",
-    "sim/fleet.py": "refuses aot_dir (no AOT cache or probe runner)",
+    "node/config.py": "no compile cache by default; a checkpoint is one "
+                      "file",
+    "sim/harness.py": "refuses perfscope; the probe runs on the mesh's "
+                      "lanes",
+    "sim/fleet.py": "refuses aot_dir (no AOT cache)",
     "sim/cli.py": "own exit codes and parse-collect-render loop: the "
                   "lint package stays the reference's",
     "sim/__main__.py": "runs under `if __name__ == \"__main__\"` only, so "
@@ -101,10 +102,28 @@ CHANGED_TWINS = {
     "analysis/conc/__init__.py": "the witness only: the static conclint "
                                  "stays the reference's",
     "node/solver.py": "runners hold their pipelines' weights; results "
-                      "come back through pinned memory and CUDA events",
-    "node/factory.py": "on a torch device; no mesh; a checkpoint is the "
-                       "port's one file, loaded to the device and cast "
-                       "there; the pipeline quantizes as it loads",
+                      "come back through pinned memory and CUDA events; "
+                      "on a dp mesh each dispatch, a whole canonical "
+                      "batch, takes the next lane",
+    "node/factory.py": "on a torch device; anythingv3 alone on a dp mesh "
+                       "(mesh_refusal); a checkpoint is the port's one "
+                       "file, loaded to the device and cast there; the "
+                       "pipeline quantizes as it loads",
+    "parallel/meshsolve.py": "a mesh of lanes for jax's devices; no "
+                             "canonical_batch % dp gate in "
+                             "check_mesh_contract, since no lane ever "
+                             "runs less than a whole canonical batch; "
+                             "the probes' products in a fixed order; no "
+                             "trace specs",
+    "parallel/mesh.py": "lanes for devices, virtual lanes set "
+                        "explicitly; no abstract_mesh",
+    "parallel/collectives.py": "each collective over the lanes' tensors",
+    "parallel/sharding.py": "LaneSharding and Sharded for NamedSharding "
+                            "and placed arrays; no DEFAULT_TP_RULES yet",
+    "parallel/distributed.py": "torch.distributed over TCP, from the "
+                               "ARBIUS_* environment",
+    "parallel/__init__.py": "the lane mesh's exports; no abstract_mesh, "
+                            "tp rules or pipeline stages",
     "models/sd15/convert.py": "plain walks over nested dicts (`_leaves`) "
                               "for jax.tree_util's; the key functions and "
                               "leaf transforms as they are",

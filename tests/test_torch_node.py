@@ -805,7 +805,14 @@ def test_int8_anythingv3_mines_in_its_mode(params, one_torch_thread):
 # -- settings the port refuses ---------------------------------------------
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"mesh": {"dp": 2}}, 11),
+    ({"mesh": {"dp": 2}}, "lanes"),
+    ({"mesh": {"dp": 2, "tp": 2},
+      "models": [{"id": "0x" + "cc" * 32, "template": "anythingv3"}]}, 11),
+    ({"mesh": {"dp": 2},
+      "models": [{"id": "0x" + "cb" * 32, "template": "kandinsky2"}]}, 11),
+    ({"mesh": {"dp": 2},
+      "models": [{"id": "0x" + "cd" * 32, "template": "textgen"}]}, 11),
+    ({"mesh": {"pp": 2}}, 11),
     ({"aot_cache": {"enabled": True}}, 12),
     ({"compile_cache_dir": ".jax_cache"}, 12),
     ({"perfscope": {"enabled": True}}, 12),
@@ -825,12 +832,15 @@ def test_int8_anythingv3_mines_in_its_mode(params, one_torch_thread):
 ], ids=lambda v: json.dumps(v) if isinstance(v, dict) else str(v))
 def test_unported_settings_refused_at_boot(overrides, item):
     """Each setting whose module the port lacks raises BootError naming
-    its ROADMAP item; a setting once refused whose module is ported now
-    (item None: a full-width textgen model, in bf16, int8 and fp8) boots
-    and solves in its mode; the alert engine and the fleet worker hooks
-    (item "boots") boot a node with no model. robust_video_matting in
-    int8 (item "bf16") is refused by the factory with the reference's
-    sentence."""
+    its ROADMAP item (a mesh layout a configured family does not run on
+    the port yet, pipeline stages); a setting once refused whose module
+    is ported now (item None: a full-width textgen model, in bf16, int8
+    and fp8) boots and solves in its mode; the alert engine and the fleet
+    worker hooks (item "boots") boot a node with no model. A dp2 mesh
+    (item "lanes") boots where the host has the lanes, and is refused at
+    boot with the reference's sentence on a host with fewer (here: no
+    card and no virtual lanes). robust_video_matting in int8 (item
+    "bf16") is refused by the factory with the reference's sentence."""
     from arbius_tpu_torch.node import BootError, load_config
 
     cfg = load_config(overrides)
@@ -843,6 +853,22 @@ def test_unported_settings_refused_at_boot(overrides, item):
                 "only \\(docs/quantization.md\\)")):
             P.node.build_registry(cfg, device="cpu",
                                   resolve_file=lambda cid: None)
+        return
+    if item == "lanes":
+        from arbius_tpu_torch.parallel import virtual_lanes
+
+        node = P.node.MinerNode(P.node.LocalChain(eng, MINER), cfg,
+                                P.node.ModelRegistry())
+        with pytest.raises(ValueError, match="needs 2 devices but jax "
+                                             "sees 0"):
+            node.boot()
+        node.close()
+        with virtual_lanes(2, "cpu"):
+            node = P.node.MinerNode(P.node.LocalChain(eng, MINER), cfg,
+                                    P.node.ModelRegistry())
+            node.boot()
+        assert node.solve_layout == "dp2"
+        node.close()
         return
     if item == "boots":
         node = P.node.MinerNode(P.node.LocalChain(eng, MINER), cfg,

@@ -48,11 +48,11 @@ def _spans(nodes):
     return [(n["name"], _spans(n.get("children", []))) for n in nodes]
 
 
-def _serve(pkg: str, tmp_path) -> dict:
+def _serve(pkg: str, tmp_path, **cfg) -> dict:
     """Mine one task, submit one through the form, then read every view
-    of `pkg`'s ControlRPC."""
+    of `pkg`'s ControlRPC (its node's config `cfg` beside the world's)."""
     P = _pkg(pkg)
-    w = build_world(P, store_dir=str(tmp_path / pkg / "store"))
+    w = build_world(P, store_dir=str(tmp_path / pkg / "store"), **cfg)
     rpc = importlib.import_module(f"{pkg}.node.rpc").ControlRPC(w.node,
                                                                 port=0)
     rpc.start()
@@ -81,6 +81,8 @@ def _serve(pkg: str, tmp_path) -> dict:
             ln for ln in body.splitlines()
             if ln.startswith(("arbius_solutions_submitted_total ",
                               "arbius_tasks_seen_total ")))
+        out["mesh_devices"] = [ln for ln in body.splitlines()
+                               if ln.startswith("arbius_mesh_devices ")]
         code, body = _get(rpc.port, f"/debug/trace?taskid={tid}")
         trace = json.loads(body)
         out["/debug/trace"] = (code, _spans(trace["spans"]))
@@ -120,6 +122,21 @@ def test_control_rpc_views_match_reference(tmp_path):
                                               "alerts": []})
     assert ours["broken"][0] == 500 and ours["rpc_errors"] == 1
     assert ours["after"] == 200
+    assert ours == ref
+
+
+def test_control_rpc_views_match_reference_on_dp2_mesh(tmp_path):
+    """The same views from nodes booted with mesh {"dp": 2}: the
+    reference's over two of its 8 virtual CPU devices, the port's over
+    two virtual CPU lanes; the cost model's layout is "dp2" in both."""
+    from arbius_tpu_torch.parallel import virtual_lanes
+
+    ref = _serve("arbius_tpu", tmp_path / "ref", mesh={"dp": 2})
+    with virtual_lanes(2, "cpu"):
+        ours = _serve("arbius_tpu_torch", tmp_path / "port",
+                      mesh={"dp": 2})
+    assert ours["/debug/costmodel"][-1] == "dp2"
+    assert ours["mesh_devices"] == ["arbius_mesh_devices 2"]
     assert ours == ref
 
 

@@ -22,12 +22,14 @@ def renamed_module(path: pathlib.Path) -> types.ModuleType:
     return mod
 
 
-def renamed_definitions(path: pathlib.Path,
-                        names: tuple[str, ...]) -> types.ModuleType:
+def renamed_definitions(path: pathlib.Path, names: tuple[str, ...],
+                        env: dict | None = None) -> types.ModuleType:
     """The top-level classes, functions and assigned names `names` of
     `path`'s code, renamed as `renamed_module` does, with the module's
-    imports of anything but JAX and the reference."""
+    imports of anything but JAX and the reference, and the globals `env`
+    (the port's objects for the names the dropped imports bound)."""
     src = path.read_text()
+    lines = src.splitlines()
     keep = []
     for node in ast.parse(src).body:
         if isinstance(node, (ast.Import, ast.ImportFrom)):
@@ -39,9 +41,13 @@ def renamed_definitions(path: pathlib.Path,
         elif getattr(node, "name", None) in names or (
                 isinstance(node, ast.Assign) and
                 {getattr(t, "id", None) for t in node.targets} & set(names)):
-            keep.append(ast.get_source_segment(src, node))
+            # with its decorators (a test's parametrize marks)
+            first = min([d.lineno for d in
+                         getattr(node, "decorator_list", [])] + [node.lineno])
+            keep.append("\n".join(lines[first - 1:node.end_lineno]))
     mod = types.ModuleType("ported_" + path.stem)
     mod.__file__ = str(path)
+    mod.__dict__.update(env or {})
     code = "\n\n".join(keep).replace("arbius_tpu.", "arbius_tpu_torch.")
     assert "arbius_tpu." not in code and "import jax" not in code, path
     exec(compile(code, str(path), "exec"), mod.__dict__)
@@ -54,10 +60,36 @@ def cases(mod: types.ModuleType) -> list[str]:
     return sorted(name for name in vars(mod) if name.startswith("test_"))
 
 
-def run_case(mod: types.ModuleType, name: str, request) -> None:
-    """Call the test `name` of `mod` with the fixtures it names, taken
-    from `request` (the calling module must expose `mod`'s own fixtures
-    under their names)."""
+def parametrized_cases(mod: types.ModuleType,
+                       names: list[str]) -> list[tuple[str, str, dict]]:
+    """(case id, test name, parameters) for each test `names` of `mod`:
+    a test under `pytest.mark.parametrize` once per combination of its
+    parameter sets (ids `name[i-j]`, indices into each mark's values)."""
+    out = []
+    for name in names:
+        combos = [("", {})]
+        for mark in getattr(getattr(mod, name), "pytestmark", []):
+            if mark.name != "parametrize":
+                continue
+            argnames, values = mark.args[:2]
+            argnames = ([a.strip() for a in argnames.split(",")]
+                        if isinstance(argnames, str) else list(argnames))
+            combos = [(f"{tag}-{i}" if tag else str(i),
+                       {**given, **dict(zip(argnames, v if len(argnames) > 1
+                                            else (v,)))})
+                      for i, v in enumerate(values) for tag, given in combos]
+        out += [(f"{name}[{tag}]" if tag else name, name, given)
+                for tag, given in combos]
+    return out
+
+
+def run_case(mod: types.ModuleType, name: str, request,
+             params: dict | None = None) -> None:
+    """Call the test `name` of `mod` with `params` and the fixtures it
+    names, taken from `request` (the calling module must expose `mod`'s
+    own fixtures under their names)."""
     fn = getattr(mod, name)
-    fn(**{arg: request.getfixturevalue(arg)
+    params = params or {}
+    fn(**{arg: params[arg] if arg in params
+          else request.getfixturevalue(arg)
           for arg in inspect.signature(fn).parameters})
